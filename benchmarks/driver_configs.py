@@ -8,9 +8,9 @@ backend and prints one JSON line per config:
      "ms_per_sweep": ..., "extra": {...}}
 
 Reference analog: spin-sim/examples/bench.rs:12-16,51-87 (per-mode ms/sweep)
-and benchmarks/sweep_modes.py.  Run on the real TPU; keep it serialized
-(one process — see CLAUDE.md).  ``--quick`` shrinks sweep counts ~8x for
-smoke runs; ``--only N`` runs a single config.
+and benchmarks/sweep_modes.py.  Run on the GPU in one process (a second JAX
+process on the same card fails for want of memory).  ``--quick`` shrinks
+sweep counts ~8x for smoke runs; ``--only N`` runs a single config.
 """
 
 import argparse

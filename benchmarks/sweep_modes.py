@@ -3,7 +3,7 @@
 Port of the reference harness (``/root/reference/benchmarks/sweep_modes.py``:
 64^2 lattice, 16 temps, 128 disorder realizations) with the same configs so
 numbers are directly comparable; a warm pass is added because compilation is
-one-time on TPU, and the sweep count is raised so the asynchronous dispatch
+one-time per program, and the sweep count is raised so the asynchronous dispatch
 amortizes (the reference is an eager CPU program; this one is one fused scan).
 
 Run: ``python benchmarks/sweep_modes.py [--quick]``.

@@ -1,6 +1,6 @@
 // Native host-side lattice helpers for peapods_tpu.
 //
-// The TPU engine's device tables are built host-side once per model; for
+// The engine's device tables are built host-side once per model; for
 // large lattices (256^2-class 2D, 16^3+ 3D with high-coordination offsets)
 // the pure-python greedy coloring is the slow part of model construction.
 // This library provides the same routines in C++ (loaded via ctypes, with a

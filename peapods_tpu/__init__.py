@@ -1,6 +1,6 @@
-"""peapods_tpu — TPU-native Monte Carlo engine for Ising spin systems.
+"""peapods_tpu — JAX Monte Carlo engine for Ising spin systems.
 
-A brand-new JAX/XLA/Pallas rebuild of the capabilities of PeaBrane/peapods
+A JAX/XLA rebuild of the capabilities of PeaBrane/peapods
 (reference at /root/reference): Metropolis/Gibbs sweeps, Swendsen-Wang/Wolff
 cluster updates, parallel tempering, replica-overlap cluster moves
 (Houdayer/Joerg/CMR), and the full overlap/diagnostic observable set — with

@@ -175,7 +175,7 @@ def _add_sweep_args(parser):
     _apply(parser, [
         ("--sequential", dict(action="store_true", default=None,
                               help="Layout hint kept for API compatibility "
-                              "(the TPU engine fuses replica and disorder "
+                              "(the engine fuses replica and disorder "
                               "parallelism on device)")),
         ("--snapshot-interval", dict(type=int, default=None,
                                      help="Save cluster snapshots every N "
@@ -568,7 +568,7 @@ def build_parser():
     parser = argparse.ArgumentParser(
         prog="peapods",
         description="Ising Monte Carlo simulations from the command line "
-        "(TPU-native engine).",
+        "(JAX engine).",
     )
     subparsers = parser.add_subparsers(dest="command")
     for name, (help_text, install_args, runner) in _SUBCOMMANDS.items():

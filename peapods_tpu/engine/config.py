@@ -10,7 +10,7 @@ mutation" contract tested in the reference's
 from __future__ import annotations
 
 import sys
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 __all__ = [
     "SWEEP_MODES",
@@ -153,7 +153,7 @@ class SimConfig:
     overlap_cluster: OverlapClusterConfig | None = None
     autocorrelation_max_lag: int | None = None
     autocorrelation_backend: str = "ring"
-    sequential: bool = False  # layout hint only on TPU; kept for API parity
+    sequential: bool = False  # layout hint only; kept for API parity
     equilibration_diagnostic: bool = False
 
     def validate(self) -> None:

@@ -1,6 +1,6 @@
 """The fused sweep loop: one jitted ``lax.scan`` over sweeps.
 
-TPU-native counterpart of the reference hot loop
+Counterpart of the reference hot loop
 (``/root/reference/spin-sim/src/simulation/mod.rs:177-858``).  Each scan step
 performs, in reference order:
 
@@ -40,16 +40,6 @@ from ..ops.geometry import GridOps
 from ..ops.lattice import Lattice
 from ..ops.measure import overlap_dots, per_slot_values, slot_temps_for_systems
 from ..ops.sweep import mc_sweep
-from ..ops import pallas_sweep
-from ..ops import pallas_sweep3d
-from ..ops import pallas_sweep_diag
-from ..ops import pallas_sweep_tri
-from ..ops import pallas_mega
-from ..ops import pallas_megapair
-from ..ops import pallas_cc
-from ..ops import pallas_cc_batch
-from ..ops import pallas_cc_band
-from ..ops import pallas_event
 from ..utils.profiling import phase_scope
 from .config import SimConfig
 
@@ -88,7 +78,7 @@ OBS_KINDS = ("houdayer", "jorg", "cmr")  # overlap observation accumulator kinds
 SERIES = {"m2_ac": 0, "q2_ac": 1, "diag_e": 2, "diag_ql": 3}
 N_SERIES = len(SERIES)
 
-_PH_SWEEP, _PH_FK, _PH_OVERLAP, _PH_PT, _PH_EVT = range(1, 6)
+_PH_SWEEP, _PH_FK, _PH_OVERLAP, _PH_PT = range(1, 5)
 
 # Device-side equilibration checkpoint slots: sweeps 128*2^k
 # (equilibration.rs:17-59); 24 slots reach ~1e9 sweeps.  The final
@@ -97,7 +87,8 @@ N_EQ_SLOTS = 24
 
 
 def _kahan_add(total, comp, value):
-    """Compensated f32 accumulation (f64 is unavailable on TPU)."""
+    """Compensated f32 accumulation: near-f64 running sums while every
+    device array stays 32-bit (no global ``jax_enable_x64``)."""
     y = value - comp
     t = total + y
     comp = (t - total) - y
@@ -136,27 +127,7 @@ class Runtime:
     temps: jax.Array  # f32 [n_temps]
     couplings: jax.Array  # f32 [n_disorder, n_spins, n_nb]
     coup_bwd: jax.Array  # f32 [n_disorder, n_spins, n_nb] (J[bwd[i,d], d])
-    jgrids: jax.Array | None = None  # f32 [n_disorder, 4|6, L0, lanes] (pallas)
-    use_pallas: bool = False  # wide-lattice direct kernel
-    tri: bool = False  # triangular-lattice direct kernel
-    tri_pack: int = 0  # triangular lane-packing factor (0 = off)
-    diag: int = 0  # BCC/FCC kernel lane-pack factor kp (0 = off)
-    diag_kind: str = ""  # "bcc" / "fcc" when diag is active
-    gen: int = 0  # generic-offset kernel lane-pack factor kp (0 = off)
-    gen_info: tuple | None = None  # (shape3, offsets3, periods, table, nc)
-    halo_gen: int = 0  # generic halo kernel active under the space mesh
-    halo_gen_m: int = 0  # halo depth (max |offset[0]|)
-    pallas_ok: bool = False  # Pallas available at all (device + not disabled)
-    halo2d: bool = False  # space-mesh halo-exchange 2D kernel
-    halo2d_k: int = 0  # lane-packed (W < 128) 2D halo kernel factor (0=off)
-    halo3d: int = 0  # space-mesh halo-exchange 3D kernel lane-pack kp (0=off)
-    pack_k: int = 0  # lane-packing factor for narrow lattices (0 = off)
-    kernel3d: int = 0  # 3D kernel lane-pack factor kp >= 1 (0 = off)
-    kernel3d_rows: int = 1  # 3D kernel sublane-pack factor ks (systems/rows)
-    mesh: object | None = None  # jax.sharding.Mesh; Pallas calls shard_map
-    # over it (the reference keeps full per-worker kernel speed across the
-    # rayon fan-out, simulation/mod.rs:887-903 — scaling out must not cost
-    # per-unit throughput)
+    mesh: object | None = None  # jax.sharding.Mesh
 
     @classmethod
     def build(cls, lattice, couplings_nd, temps, n_replicas, mesh=None):
@@ -164,280 +135,7 @@ class Runtime:
         coup = jnp.asarray(couplings_nd, dtype=jnp.float32)
         n_nb = lattice.n_neighbors
         coup_bwd = coup[:, lattice.bwd, np.arange(n_nb)[None, :]]
-        import os
-
-        on_device = (
-            jax.default_backend() not in ("cpu",)
-            or os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        )
-        # A/B kill switch: force the roll-based jnp path everywhere (kernel
-        # isolation during validation; also disables the megakernel, which
-        # requires use_pallas)
-        if os.environ.get("PEAPODS_DISABLE_PALLAS") == "1":
-            on_device = False
-        use_pallas = pallas_sweep.supports(lattice) and on_device
-        n_systems = int(n_replicas) * int(len(temps))
-        pack_k = (
-            pallas_sweep.pack_factor(lattice, n_systems)
-            if (on_device and not use_pallas)
-            else 0
-        )
-        tri_on = on_device and os.environ.get("PEAPODS_DISABLE_TRI") != "1"
-        tri = pallas_sweep_tri.supports_tri(lattice) and tri_on
-        tri_pack = (
-            pallas_sweep_tri.pack_factor_tri(lattice, n_systems)
-            if (tri_on and not tri)
-            else 0
-        )
-        kernel3d = pallas_sweep3d.pack_factor_3d(lattice, n_systems) if on_device else 0
-        diag_kind = (
-            (pallas_sweep_diag.diag_kind(lattice) or "")
-            if (on_device and os.environ.get("PEAPODS_DISABLE_DIAG") != "1")
-            else ""
-        )
-        diag = (
-            pallas_sweep_diag.pack_factor_diag(lattice, n_systems)
-            if diag_kind
-            else 0
-        )
-        if not diag:
-            diag_kind = ""
-        # Generic-offset kernel: the fallback serving ANY offset table with
-        # a periodic greedy coloring (the reference's with_offsets API runs
-        # every lattice through one neighbor-table sweep, mcmc/sweep.rs:
-        # 51-97).  Named geometries keep their dedicated kernels; this
-        # catches custom tables (e.g. next-nearest-neighbor square).
-        gen = (
-            pallas_sweep_diag.pack_factor_gen(lattice, n_systems)
-            if (
-                on_device
-                and not (use_pallas or pack_k or tri or tri_pack
-                         or kernel3d or diag)
-                and os.environ.get("PEAPODS_DISABLE_GEN") != "1"
-            )
-            else 0
-        )
-        gen_info = pallas_sweep_diag.gen_meta(lattice) if gen else None
-        from ..utils.log import log_once
-
-        halo2d = False
-        halo2d_k = 0
-        halo3d = 0
-        halo_gen = 0
-        halo_gen_m = 0
-        if mesh is not None and "space" in mesh.axis_names:
-            # spatial decomposition: the spin axis itself is sharded (row
-            # bands / plane slabs).  Direct-kernel shapes keep a Pallas fast
-            # path via the halo-exchange color kernels (sweep_2d_halo_color
-            # / sweep_3d_halo_color: ppermute ring fetches the shard-edge
-            # neighbor rows/planes before each color pass); everything else
-            # rides the jnp path, whose roll stencils auto-partition with
-            # XLA halo collectives.
-            ns = mesh.shape["space"]
-            # a 'systems' axis composes with 'space': the halo ring runs
-            # per systems-shard (the batch just splits), so the only extra
-            # requirement is an even systems split (and, in 3D, kp-groups
-            # staying shard-local — halo_pack_3d gets the LOCAL count)
-            sys_ax = dict(mesh.shape).get("systems", 1)
-            sys_ok = n_systems % sys_ax == 0
-            rows_ok = (
-                lattice.shape[0] % ns == 0
-                and (lattice.shape[0] // ns) % 8 == 0
-            )
-            halo2d = on_device and use_pallas and sys_ok and rows_ok
-            if not halo2d and on_device and sys_ok and rows_ok:
-                # narrow (W < 128) lattices: lane-packed halo kernel with
-                # the packed kernel's seam-corrected rolls (pack groups
-                # stay shard-local under a systems axis)
-                halo2d_k = pallas_sweep.pack_factor(
-                    lattice, n_systems // sys_ax
-                )
-            if not halo2d and not halo2d_k and on_device and sys_ok:
-                halo3d = pallas_sweep3d.halo_pack_3d(
-                    lattice, n_systems // sys_ax, ns
-                )
-            if (
-                not halo2d
-                and not halo2d_k
-                and not halo3d
-                and on_device
-                and sys_ok
-                and os.environ.get("PEAPODS_DISABLE_GEN") != "1"
-            ):
-                # generic halo kernel: triangular / BCC / FCC / custom
-                # offsets keep a Pallas fast path under the space mesh
-                # (one color pass per kernel call, m halo rows ppermuted
-                # per pass)
-                hg = pallas_sweep_diag.halo_gen_meta(
-                    lattice, n_systems // sys_ax, ns
-                )
-                if hg is not None:
-                    gen_info, halo_gen_m = hg
-                    halo_gen = 1
-            if (
-                not halo2d
-                and not halo2d_k
-                and not halo3d
-                and not halo_gen
-                and (use_pallas or pack_k or kernel3d or tri or tri_pack
-                     or diag or gen)
-            ):
-                log_once(
-                    "'space' mesh axis: falling back to the jnp sweep path "
-                    "(lattice/mesh shape outside the halo kernels' support)"
-                )
-            use_pallas = False
-            pack_k = 0
-            kernel3d = 0
-            tri = False
-            tri_pack = 0
-            diag = 0
-            diag_kind = ""
-            gen = 0
-            if not halo_gen:
-                gen_info = None
-        if mesh is not None and "systems" in mesh.axis_names:
-            # systems-sharded mesh: the kernel batch axis must split evenly
-            # across the mesh axis (and pack groups must stay shard-local)
-            sys_ax = mesh.shape["systems"]
-            if n_systems % sys_ax:
-                if (use_pallas or pack_k or kernel3d or tri or tri_pack
-                        or diag):
-                    log_once(
-                        f"n_systems={n_systems} does not divide over the "
-                        f"{sys_ax}-way 'systems' mesh axis: falling back to "
-                        "the jnp sweep path"
-                    )
-                use_pallas = False
-                pack_k = 0
-                kernel3d = 0
-                tri = False
-                tri_pack = 0
-                diag = 0
-                diag_kind = ""
-                gen = 0
-                gen_info = None
-            else:
-                if pack_k and (n_systems // sys_ax) % pack_k:
-                    log_once(
-                        f"lane-pack factor {pack_k} does not divide the "
-                        f"per-shard system count {n_systems // sys_ax}: "
-                        "falling back to the jnp sweep path"
-                    )
-                    pack_k = 0
-                if tri_pack and (n_systems // sys_ax) % tri_pack:
-                    log_once(
-                        f"lane-pack factor {tri_pack} does not divide the "
-                        f"per-shard system count {n_systems // sys_ax}: "
-                        "falling back to the jnp sweep path"
-                    )
-                    tri_pack = 0
-                if kernel3d and (n_systems // sys_ax) % kernel3d:
-                    log_once(
-                        f"3D lane-pack factor {kernel3d} does not divide the "
-                        f"per-shard system count {n_systems // sys_ax}: "
-                        "falling back to the jnp sweep path"
-                    )
-                    kernel3d = 0
-                if diag and (n_systems // sys_ax) % diag:
-                    log_once(
-                        f"BCC/FCC lane-pack factor {diag} does not divide "
-                        f"the per-shard system count {n_systems // sys_ax}: "
-                        "falling back to the jnp sweep path"
-                    )
-                    diag = 0
-                    diag_kind = ""
-                if gen and (n_systems // sys_ax) % gen:
-                    log_once(
-                        f"generic-offset lane-pack factor {gen} does not "
-                        f"divide the per-shard system count "
-                        f"{n_systems // sys_ax}: falling back to the jnp "
-                        "sweep path"
-                    )
-                    gen = 0
-                    gen_info = None
-        # sublane packing: stack ks systems per 3D kernel instance (fewer,
-        # fatter grid steps — small lattices are otherwise pipeline-bound);
-        # shard-local system counts must stay divisible
-        k3_rows = pallas_sweep3d.row_pack_3d(lattice, n_systems, kernel3d)
-        if mesh is not None and "systems" in mesh.axis_names and kernel3d:
-            sys_ax = mesh.shape["systems"]
-            local = n_systems // sys_ax
-            while k3_rows > 1 and (local // kernel3d) % k3_rows:
-                k3_rows -= 1
-        if use_pallas or halo2d:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep.pack_coupling_grids(c, lattice.shape)
-            )(coup)
-        elif halo2d_k:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep.pack_coupling_grids_packed(
-                    c, lattice.shape, halo2d_k
-                )
-            )(coup)
-        elif halo3d:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep3d.pack_coupling_grids_3d(
-                    c, tuple(lattice.shape), halo3d, 1
-                )
-            )(coup)
-        elif pack_k:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep.pack_coupling_grids_packed(
-                    c, lattice.shape, pack_k
-                )
-            )(coup)
-        elif tri:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep_tri.pack_coupling_grids_tri(
-                    c, lattice.shape
-                )
-            )(coup)
-        elif tri_pack:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep_tri.pack_coupling_grids_tri_packed(
-                    c, lattice.shape, tri_pack
-                )
-            )(coup)
-        elif kernel3d:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep3d.pack_coupling_grids_3d(
-                    c, tuple(lattice.shape), kernel3d, k3_rows
-                )
-            )(coup)
-        elif diag:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep_diag.pack_coupling_grids_diag(
-                    c, tuple(lattice.shape), diag_kind, diag
-                )
-            )(coup)
-        elif gen or halo_gen:
-            jgrids = jax.vmap(
-                lambda c: pallas_sweep_diag.pack_coupling_grids_gen(
-                    c, lattice, gen if gen else 1
-                )
-            )(coup)
-        else:
-            jgrids = None
         return cls(
-            jgrids=jgrids,
-            use_pallas=use_pallas,
-            tri=tri,
-            tri_pack=tri_pack,
-            diag=diag,
-            diag_kind=diag_kind,
-            gen=gen,
-            gen_info=gen_info,
-            halo_gen=halo_gen,
-            halo_gen_m=halo_gen_m,
-            pallas_ok=on_device,
-            halo2d=halo2d,
-            halo2d_k=halo2d_k,
-            halo3d=halo3d,
-            pack_k=pack_k,
-            kernel3d=kernel3d,
-            kernel3d_rows=k3_rows if kernel3d else 1,
-            mesh=mesh,
             lattice=lattice,
             geom=GridOps.from_lattice(lattice),
             n_replicas=int(n_replicas),
@@ -448,6 +146,7 @@ class Runtime:
             temps=jnp.asarray(temps, dtype=jnp.float32),
             couplings=coup,
             coup_bwd=coup_bwd,
+            mesh=mesh,
         )
 
     @property
@@ -469,18 +168,6 @@ class Runtime:
     @property
     def cold_slot(self):
         return int(np.argmin(self.temps_np))
-
-
-def _flat_batch_spec(mesh):
-    """PartitionSpec splitting a flat (disorder-major) graph/task batch over
-    every batch-compatible mesh axis — rows are whole graphs/tasks, so any
-    even contiguous split over disorder (and systems, when present) keeps
-    each row on one device."""
-    from jax.sharding import PartitionSpec as P
-
-    return P(
-        tuple(a for a in ("disorder", "systems") if a in mesh.axis_names)
-    )
 
 
 def _zero_obs(n_disorder, n_temps, n_bins):
@@ -531,29 +218,12 @@ class LoopProgram:
     """Compiled sweep-loop program for one (Runtime, SimConfig) pair."""
 
     def __init__(self, rt: Runtime, cfg: SimConfig):
+        import os
+
         self.rt = rt
         self.cfg = cfg
         c = cfg.cluster_update
         h = cfg.overlap_cluster
-        # triangular-offsets grid (third bond direction [1, -1]) for the
-        # packed-tile kernels (cc_batch / fused FK / fused events)
-        _gd = pallas_cc_batch.grid_dims(rt.lattice)
-        self._lat_tri = bool(_gd is not None and _gd[4])
-        # log-doubling CC fixed-point body in every packed-tile kernel
-        # (same labels bitwise; fewer rounds on long bond runs).  Default:
-        # auto by lattice extent (2026-08-19 chip rpc sweep: 1.11x on the
-        # 64^2 FK batch, 0.86x on 256^2 SW at T_c — auto_cc_log);
-        # PEAPODS_CC_LOG forces 0 (classic) or k >= 1 (k super rounds per
-        # convergence check).  Read once at program build and passed as a
-        # static so in-process A/Bs that toggle the env between builds
-        # compile separately.
-        import os as _os
-
-        self.cc_log = pallas_cc_batch.parse_cc_log(
-            _os.environ.get("PEAPODS_CC_LOG")
-        )
-        if self.cc_log is None:
-            self.cc_log = pallas_cc_batch.auto_cc_log(rt.lattice.shape)
         self.collect_fk = c is not None and (c.collect_stats or c.action == "observe")
         self.observe_fk = c is not None and c.action == "observe"
         self.has_pairs = rt.n_pairs > 0
@@ -570,48 +240,6 @@ class LoopProgram:
             else ()
         )
         self.with_winding = rt.lattice.canonical_square_shape is not None
-        import os as _os
-
-        # Fused sweep+measurement kernel: only valid when nothing mutates
-        # spins between the sweep and the measurement — no FK cluster phase,
-        # or an observe-only FK phase (observe builds and measures the bond
-        # graph without flipping, fk.rs:140-142, so the fused-kernel energies
-        # still describe the spins the measurement sees; this also keeps
-        # FK-observer runs bitwise identical to observer-free runs on fused
-        # configs, where a jnp re-sum could flip a threshold-marginal PT
-        # swap).  For the 3D kernel the fused variant ends every grid step
-        # with scalar reductions that stall the vector pipeline, so it wins
-        # only when packing leaves few fat per-shard instances per disorder
-        # (8^3: 24/8 = 3 groups per realization, -13% measured) and loses
-        # with many thin ones (16^3: 768 global instances).
-        sys_shards = (
-            rt.mesh.shape["systems"]
-            if (rt.mesh is not None and "systems" in rt.mesh.axis_names)
-            else 1
-        )
-        fuse_3d = (
-            rt.kernel3d > 0
-            and (rt.n_systems // sys_shards)
-            // (rt.kernel3d * rt.kernel3d_rows)
-            <= 8
-        )
-        fuse_diag = (
-            rt.diag > 0
-            and (rt.n_systems // sys_shards) // rt.diag <= 8
-        )
-        fuse_gen = (
-            rt.gen > 0
-            and (rt.n_systems // sys_shards) // rt.gen <= 8
-        )
-        self.fuse_measure = (
-            (
-                rt.use_pallas or rt.tri or fuse_3d or fuse_diag or fuse_gen
-                or rt.halo2d
-                or bool(rt.halo2d_k) or bool(rt.halo3d)
-            )
-            and (c is None or c.action == "observe")
-            and _os.environ.get("PEAPODS_DISABLE_FUSE") != "1"
-        )
         # Autocorrelation ring + equilibration checkpoints accumulate ON
         # DEVICE (scan-carry ring of the last max_lag values + Kahan lagged
         # sums; running means snapshotted at the 128*2^k sweeps) — the
@@ -631,123 +259,24 @@ class LoopProgram:
         self.need_series_vals = (
             self.emit_series or self.ac_device or self.equil_device
         )
-        # Megakernel fast path (ops/pallas_mega.py): the whole
-        # sweep+measure+PT cycle stays on-chip for a block of sweeps.  Only
-        # for the pure single-spin workload — any cluster phase or replica
-        # pair needs per-sweep spin access outside the kernel.
-        self.mega = (
-            rt.use_pallas
-            and _os.environ.get("PEAPODS_DISABLE_MEGA") != "1"
-            and pallas_mega.supports_mega(rt.lattice, rt.n_replicas)
-            and cfg.cluster_update is None
-            and cfg.overlap_cluster is None
-            and not self.has_pairs
-            # under a mesh: disorder-only sharding (kernel wraps in
-            # shard_map; systems/space axes would split inside one kernel
-            # instance's PT coupling)
-            and (
-                rt.mesh is None
-                or rt.mesh.devices.size == 1
-                or tuple(rt.mesh.axis_names) == ("disorder",)
-            )
-        )
-        # Pairs megakernel (ops/pallas_megapair.py): replica workloads (the
-        # spin-glass configs) keep sweep+pair-measurement+PT on-chip, with
-        # overlap cluster moves interleaved OUTSIDE between kernel calls
-        # every `interval` sweeps — the per-sweep dispatch glue (the profiled
-        # dominant cost at 8^3/16^3) amortizes over the interval.
-        self._mp = (
-            pallas_megapair.supports_megapair(
-                rt.lattice, rt.n_replicas, rt.n_temps
-            )
-            if rt.pallas_ok
-            else None
-        )
-        self.megapair = (
-            self._mp is not None
-            and not self.mega
-            and rt.n_replicas >= 2
-            and _os.environ.get("PEAPODS_DISABLE_MEGA") != "1"
-            and _os.environ.get("PEAPODS_DISABLE_MEGAPAIR") != "1"
-            and cfg.cluster_update is None
-            and (h is None or h.snapshot_interval is None)
-            # the post-event kernel call covers interval-1 sweeps; its
-            # per-sweep SMEM outputs must fit the budget (_mp_inner_cap)
-            and (h is None or h.interval <= self._mp_inner_cap() + 1)
-            and (
-                rt.mesh is None
-                or rt.mesh.devices.size == 1
-                or tuple(rt.mesh.axis_names) == ("disorder",)
-            )
-        )
-        self._mp_jgrids = None
-        # In-kernel CC for the FK phase: wins only when few graphs are built
-        # per sweep (each vmapped kernel instance pays its own round count,
-        # while the jnp path vectorizes the batch) — i.e. the 256^2 SW
-        # stress config, not the many-system/many-disorder spin glasses.
-        self.cc_pallas = (
-            rt.use_pallas
-            and pallas_cc.supports_cc(rt.lattice)
-            and rt.n_disorder * rt.n_systems <= 8
-            and (rt.mesh is None or rt.mesh.devices.size == 1)
-        )
-        # Batched CC kernel (ops/pallas_cc_batch.py): many small graphs
-        # packed per VMEM tile with per-tile convergence exit — the TPU
-        # answer to the reference's per-graph union-find over rayon
-        # (clusters/fk.rs:28-171).  Covers the many-graph regime the
-        # single-graph kernel (cc_pallas) is gated away from.  Under a
-        # disorder-sharded mesh the call shard_maps over the (disorder-
-        # major) flat graph batch — scaling out must not cost per-unit
-        # throughput (simulation/mod.rs:887-903); meshes that shard
-        # systems/space would split graphs across devices and keep the
-        # XLA-partitioned jnp CC.
-        mesh_ok = (
-            rt.mesh is None
-            or rt.mesh.devices.size == 1
-            or tuple(rt.mesh.axis_names) == ("disorder",)
-        )
-        # CC labels are graph-local and the flat batch is embarrassingly
-        # parallel, so ANY even contiguous split serves — systems-sharded
-        # meshes qualify too (a 'space' axis splits graphs themselves and
-        # stays on the XLA-partitioned jnp path).  Calls whose batch does
-        # not divide over the mesh fall back per-call in _cc_many.
-        cc_mesh_ok = mesh_ok or set(rt.mesh.axis_names) <= {
-            "disorder", "systems"
-        }
-        # custom offset tables outside the dedicated hypercubic/tri shift
-        # machinery keep the packed-tile CC through generic per-direction
-        # closures (same labels bitwise: unique fixed point)
-        self._cc_gen_offs = pallas_cc_batch.cc_gen_offsets(rt.lattice)
-        self.cc_batch = (
-            rt.pallas_ok
-            and (
-                pallas_cc_batch.supports_cc_batch(rt.lattice)
-                or self._cc_gen_offs is not None
-            )
-            and not self.cc_pallas
-            and _os.environ.get("PEAPODS_DISABLE_CCBATCH") != "1"
-            and cc_mesh_ok
-        )
         # Banded CC under a 'space' mesh: the graphs themselves are split
-        # across devices, so neither packed-tile kernel applies — but the
-        # jnp CC under GSPMD pays a halo collective per roll per propagation
-        # round.  connected_components_banded keeps the fixed point local
-        # and exchanges two halo label rows per outer round (bitwise the
+        # across devices, and the plain CC under GSPMD pays a halo
+        # collective per roll per propagation round.
+        # connected_components_banded keeps the fixed point local and
+        # exchanges two halo label rows per outer round (bitwise the
         # unsharded labeling; tests/test_cluster.py).  PEAPODS_CC_BAND=0
-        # reverts to the XLA-partitioned jnp path.
+        # reverts to the XLA-partitioned plain CC.
         self.cc_band = (
             rt.mesh is not None
             and "space" in rt.mesh.axis_names
-            and not self.cc_pallas
-            and not self.cc_batch
-            and (cfg.cluster_update is not None or h is not None)
+            and (c is not None or h is not None)
             and cl.banded_supports(rt.geom)
             # whole-row bands only: shard_map splits dim 0 of the grid, and
             # connected_components_banded reshapes each shard to full rows —
-            # non-divisible extents must keep the GSPMD jnp path (which
+            # non-divisible extents must keep the GSPMD path (which
             # tolerates uneven sharding) rather than fail at trace time.
             and rt.lattice.shape[0] % rt.mesh.shape["space"] == 0
-            and _os.environ.get("PEAPODS_CC_BAND") != "0"
+            and os.environ.get("PEAPODS_CC_BAND") != "0"
         )
         self._cc_band_b = (
             int(
@@ -763,306 +292,29 @@ class LoopProgram:
             if self.cc_band
             else 1
         )
-        # Batched winding kernel (round 5): full observe mode on 2D square
-        # lattices settles the torus-wrapping displacement potential
-        # in-kernel — the jnp BFS pays O(chemical diameter) full-tile XLA
-        # rounds (~10 ms of a 12 ms observe sweep at 256^2 T_c; the flags
-        # are settle-order-independent, so both paths produce identical
-        # results).  PEAPODS_WINDING_KERNEL=0 keeps the vmapped jnp BFS.
-        self.winding_kernel = (
-            rt.pallas_ok
-            and self.with_winding
-            and pallas_cc_batch.supports_winding_batch(rt.lattice)
-            and (rt.mesh is None or rt.mesh.devices.size == 1)
-            and _os.environ.get("PEAPODS_WINDING_KERNEL") != "0"
-        )
-        # Pallas band-local body inside the banded CC (round 5): the
-        # per-shard inner fixed point runs as one packed tile (band + its
-        # two halo rows) at packed-tile-kernel speed; the outer
-        # ppermute/psum structure (and the labeling, bitwise) is unchanged.
-        # PEAPODS_CC_BAND_PALLAS=0 keeps the jnp inner body.
-        self.cc_band_pallas = (
-            self.cc_band
-            and rt.pallas_ok
-            and pallas_cc_band.band_supports_pallas(rt.geom)
-            and _os.environ.get("PEAPODS_CC_BAND_PALLAS") != "0"
-        )
+        from ..utils.log import log_once
+
         if (
             rt.mesh is not None
             and "space" in rt.mesh.axis_names
             and not self.cc_band
-            and (cfg.cluster_update is not None or h is not None)
+            and (c is not None or h is not None)
         ):
-            from ..utils.log import log_once as _log_once
-
-            _log_once(
-                "space-sharded mesh: cluster labeling uses the jnp CC path "
+            log_once(
+                "space-sharded mesh: cluster labeling uses the plain CC path "
                 "(banded CC disabled or geometry unsupported)"
             )
-        n_mesh = 1 if rt.mesh is None else rt.mesh.devices.size
-        self._ccb = (
-            pallas_cc_batch.cc_batch_factors(
-                # per-shard graph count: each device packs its own shard
-                rt.lattice,
-                max(1, rt.n_disorder * rt.n_systems // n_mesh),
-            )
-            if self.cc_batch
-            else None
-        )
-        # Fused overlap-event kernel (ops/pallas_event.py): the whole move —
-        # bond build, CC fixed point, cluster flips — in ONE pallas_call per
-        # event, for pair tasks when nothing collects labels/stats (the
-        # perf-config case).  Per-graph scalar draws are bitwise the staged
-        # path's; houdayer (deterministic bonds) is bitwise identical
-        # end-to-end.  Like the fused FK kernel, the flat (disorder-major,
-        # temperature-major) task batch splits evenly over disorder AND
-        # disorder x systems meshes — tasks are whole rows (both partners
-        # live in the same task), so any even contiguous split serves.
-        ev_flat = [
-            rt.n_disorder * rt.n_temps * (rt.n_replicas // m.group_size)
-            for m in (h.modes if h is not None else ())
-            if (
-                m.group_size == 2
-                and pallas_event.supports_event(rt.lattice, 2)
-            )
-            or (
-                m.kind == "houdayer"
-                and pallas_event.supports_event_houdn(
-                    rt.lattice, m.group_size
-                )
-            )
-        ]
-        ev_axes_ok = mesh_ok or (
-            set(rt.mesh.axis_names) <= {"disorder", "systems"}
-        )
-        ev_mesh_ok = mesh_ok or (
-            ev_axes_ok
-            and all(b % rt.mesh.devices.size == 0 for b in ev_flat)
-        )
-        ev_eligible = (
-            rt.pallas_ok
-            and h is not None
-            # update runs flip in-kernel; collect-only stats derive
-            # CSD/top4 from the kernel's labels; full observe mode derives
-            # bond-fraction/winding from the kernel's labels + bond masks
-            # and discards the flipped spins (observe mutates nothing) —
-            # all three keep the hardware-PRNG production graph stream.
-            # Snapshot runs still need the grey labels and stay staged
-            # (per-call, in _run_tasks_batched).
-            and _os.environ.get("PEAPODS_DISABLE_EVENTKERNEL") != "1"
-            and bool(ev_flat)
-        )
-        self.event_kernel = ev_eligible and ev_mesh_ok
-        if ev_eligible and ev_axes_ok and not ev_mesh_ok:
-            # only when divisibility really is the reason (a 'space' mesh
-            # already logged its own fallback; the env kill switch is the
-            # user's explicit choice)
-            from ..utils.log import log_once as _log_once
-
-            _log_once(
-                "mesh does not split the overlap-task batch evenly: events "
-                "run the staged (bonds -> batched CC -> finish) path"
-            )
-        self._evb = (
-            pallas_cc_batch.cc_batch_factors(
-                rt.lattice,
-                max(
-                    1,
-                    rt.n_disorder * rt.n_temps * (rt.n_replicas // 2)
-                    // n_mesh,
-                ),
-            )
-            if self.event_kernel
-            else None
-        )
-        # Packed per-task J/T grids (mode-shared: jorg and cmr both consume
-        # J/T).  Built EAGERLY — _event_fused runs inside a jit trace, where
-        # building would leak a tracer into the cache.  Chunked per mesh
-        # shard so the packed tiles shard evenly along axis 0.
-        self._event_jt = (
-            pallas_event.pack_event_jt(
-                rt.couplings, rt.temps, rt.n_replicas // 2,
-                tuple(rt.lattice.shape), *self._evb, n_chunks=n_mesh,
-            )
-            if (
-                self.event_kernel
-                and any(m.kind != "houdayer" for m in h.modes)
-            )
-            else None
-        )
-        # In-kernel megapair overlap event (ops/pallas_megapair.py ev_*):
-        # the whole per-interval block — event sweep, pair move, PT,
-        # remaining sweeps — in ONE pallas_call on the megapair path.  Same
-        # no-stats/update/pairs gate as the interleaved fused event, plus R
-        # even for the static partner layout.  OFF by default: the on-chip
-        # interleaved A/B (benchmarks/mp_event_ab.py, 2026-08-19 window)
-        # measured it 4% slower at config 4 (8^3) and 13% slower at config 5
-        # (16^3 full-ladder) than the interleaved fused-event path.  Gating
-        # unselected modes' CC fixed points (ev_cc gate) halved the config-5
-        # gap (re-measured 0.99x / 0.93x later the same window), but the
-        # remaining structural cost (per-mode elementwise bodies + the
-        # in-kernel permute/energy re-derivation) still loses to the
-        # interleaved path.  PEAPODS_MP_EVENT=1 opts in (kept for
-        # re-evaluation on future kernel changes; bitwise tests cover both
-        # paths).
-        self.mp_event = (
-            self.megapair
-            and h is not None
-            and h.action == "update"
-            and all(m.group_size == 2 for m in h.modes)
-            and rt.n_replicas % 2 == 0
-            and not (self.collect_overlap or self.observe_overlap)
-            and _os.environ.get("PEAPODS_MP_EVENT") == "1"
-        )
-        # Fused FK kernel (ops/pallas_event.py fk_update_batch): the whole
-        # SW/Wolff cluster update — bond draws, CC fixed point, cluster
-        # flips — in ONE pallas_call per sweep.  collect_stats runs stay on
-        # it too (the kernel emits its resident CC labels and CSD derives
-        # in jnp — fk.rs:86-142 collects inline); only full observe mode
-        # (winding/bond observables need the bond masks) takes the staged
-        # path.  Per-graph flip draws (coin salts / Wolff seed) are bitwise
-        # the staged path's; per-bond uniforms ride the hardware PRNG
-        # (statistical, like the sweep kernels), with the injected-uniform
-        # entry pinning the decision logic bitwise
-        # (tests/test_pallas_event.py).  Reference anchor: fk.rs:28-171,
-        # which touches each graph once per update.
-        cu = cfg.cluster_update
-        # Like the batched CC, the FK graph batch is flat disorder-major and
-        # graphs are whole rows, so any even contiguous split serves —
-        # disorder x systems meshes qualify (a 'space' axis splits graphs
-        # and keeps the staged path).
-        fk_mesh_ok = mesh_ok or (
-            set(rt.mesh.axis_names) <= {"disorder", "systems"}
-            and (rt.n_disorder * rt.n_systems) % rt.mesh.devices.size == 0
-        )
-        self.fk_kernel = (
-            rt.pallas_ok
-            and cu is not None
-            and cu.action == "update"
-            and not self.observe_fk
-            and pallas_cc_batch.supports_cc_batch(rt.lattice)
-            and _os.environ.get("PEAPODS_DISABLE_FKKERNEL") != "1"
-            and fk_mesh_ok
-        )
-        # Full observe mode also rides the fused kernel: the kernel emits
-        # its resident CC labels AND bond masks, the engine discards the
-        # flipped spins (observe mutates nothing, fk.rs:140-142), and
-        # bond-fraction/winding derive in jnp from the kernel outputs — so
-        # the observed graphs are drawn by the production hardware-PRNG
-        # mechanism, not the staged path's threefry twin.
-        self.fk_kernel_obs = (
-            rt.pallas_ok
-            and self.observe_fk
-            and pallas_cc_batch.supports_cc_batch(rt.lattice)
-            and _os.environ.get("PEAPODS_DISABLE_FKKERNEL") != "1"
-            and fk_mesh_ok
-        )
-        self._fkb = (
-            pallas_cc_batch.cc_batch_factors(
-                rt.lattice,
-                max(1, rt.n_disorder * rt.n_systems // n_mesh),
-            )
-            if (self.fk_kernel or self.fk_kernel_obs)
-            else None
-        )
-        self._fk_j = (
-            pallas_event.pack_fk_j(
-                rt.couplings, rt.n_systems, tuple(rt.lattice.shape),
-                *self._fkb, n_chunks=n_mesh,
-            )
-            if (self.fk_kernel or self.fk_kernel_obs)
-            else None
-        )
         self._chunk_cache = {}
         self._snap_fn = None
-        from ..utils.log import log_once
-
         log_once(f"engine plan: {self.describe_plan()}")
 
     def describe_plan(self) -> str:
-        """One-line summary of the kernel/mesh choices this program made
+        """One-line summary of the path and mesh choices this program made
         (the user-facing answer to "which path did my run take?")."""
         rt = self.rt
-        if self.mega:
-            sweep = "megakernel-2d"
-        elif self.megapair:
-            kp, rp = self._mp
-            sweep = f"megapair(kp={kp},rp={rp})"
-            if getattr(self, "mp_event", False):
-                sweep += "+event"
-        elif rt.use_pallas:
-            sweep = "pallas-2d"
-        elif rt.pack_k:
-            sweep = f"pallas-2d-packed(k={rt.pack_k})"
-        elif rt.tri:
-            sweep = "pallas-tri"
-        elif rt.tri_pack:
-            sweep = f"pallas-tri-packed(k={rt.tri_pack})"
-        elif rt.kernel3d:
-            sweep = f"pallas-3d(kp={rt.kernel3d},ks={rt.kernel3d_rows})"
-        elif rt.diag:
-            sweep = f"pallas-{rt.diag_kind}(kp={rt.diag})"
-        elif rt.gen:
-            sweep = f"pallas-gen(kp={rt.gen})"
-        elif rt.halo2d:
-            sweep = "pallas-2d-halo"
-        elif rt.halo2d_k:
-            sweep = f"pallas-2d-halo-packed(k={rt.halo2d_k})"
-        elif rt.halo3d:
-            sweep = f"pallas-3d-halo(kp={rt.halo3d})"
-        elif rt.halo_gen:
-            sweep = f"pallas-gen-halo(m={rt.halo_gen_m})"
-        else:
-            sweep = "jnp"
-        parts = [f"sweep={sweep}"]
-
-        def _log_tag(k):
-            if not k:
-                return ""
-            return {1: "+log", -1: "+logmix"}.get(k, f"+log{k}")
-
+        parts = ["sweep=jnp"]
         if self.cfg.cluster_update is not None or self.cfg.overlap_cluster:
-            cc = (
-                "pallas"
-                if self.cc_pallas
-                else (
-                    f"pallas-batch(kp={self._ccb[0]},ks={self._ccb[1]})"
-                    if self.cc_batch
-                    else (
-                        "pallas-banded"
-                        if getattr(self, "cc_band_pallas", False)
-                        else (
-                            "jnp-banded"
-                            if getattr(self, "cc_band", False)
-                            else "jnp"
-                        )
-                    )
-                )
-            )
-            if self.cc_log and (self.cc_pallas or self.cc_batch):
-                cc += _log_tag(self.cc_log)
-            parts.append(f"cc={cc}")
-        log = _log_tag(self.cc_log)
-        if getattr(self, "fk_kernel", False) or getattr(
-            self, "fk_kernel_obs", False
-        ):
-            stats = (
-                "+obs" if self.observe_fk
-                else ("+stats" if self.collect_fk else "")
-            )
-            parts.append(
-                f"fk=fused(kp={self._fkb[0]},ks={self._fkb[1]}){stats}{log}"
-            )
-        if getattr(self, "event_kernel", False):
-            stats = (
-                "+obs" if self.observe_overlap
-                else ("+stats" if self.collect_overlap else "")
-            )
-            parts.append(
-                f"event=fused(kp={self._evb[0]},ks={self._evb[1]}){stats}{log}"
-            )
-        if self.fuse_measure:
-            parts.append("fused-measure")
+            parts.append("cc=jnp-banded" if self.cc_band else "cc=jnp")
         if rt.mesh is not None and rt.mesh.devices.size > 1:
             parts.append(
                 "mesh=" + "x".join(
@@ -1249,232 +501,26 @@ class LoopProgram:
             gibbs=gibbs,
         )
 
-    def _sweep_phase_pallas(self, spins, sid, keys):
-        """Disorder-batched Pallas sweep (kernels carry the disorder grid
-        axis themselves; SMEM operands cannot be vmapped).
-
-        Under a multi-device mesh the kernel call is wrapped in
-        ``jax.shard_map`` so every device runs the full-speed kernel on its
-        local shard — the reference preserves per-worker kernel speed across
-        its rayon fan-out (simulation/mod.rs:887-903); scaling out must not
-        cost per-unit throughput.
-
-        Returns ``(spins, fused_em_or_None)``.
-        """
-        import os
-
-        rt = self.rt
-        gibbs = self.cfg.sweep_mode == "gibbs"
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        sys_temps = jax.vmap(lambda si: slot_temps_for_systems(si, rt.temps))(sid)
-        skeys = jax.vmap(lambda k: jax.random.fold_in(k, _PH_SWEEP))(keys)
-
-        if rt.kernel3d:
-            seeds = pallas_sweep.make_seeds(
-                skeys, rt.n_systems // (rt.kernel3d * rt.kernel3d_rows)
-            )
-            fn = (
-                pallas_sweep3d.sweep_3d_fused
-                if self.fuse_measure
-                else pallas_sweep3d.sweep_3d
-            )
-
-            def call(sp, jg, st, sd):
-                return fn(
-                    sp, jg, st, sd, shape=tuple(rt.lattice.shape),
-                    kp=rt.kernel3d, ks=rt.kernel3d_rows, gibbs=gibbs,
-                    interpret=interpret,
-                )
-
-            n_out = 3 if self.fuse_measure else 1
-        elif rt.diag:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems // rt.diag)
-            diag_fn = (
-                pallas_sweep_diag.sweep_diag_fused
-                if self.fuse_measure
-                else pallas_sweep_diag.sweep_diag
-            )
-
-            def call(sp, jg, st, sd):
-                return diag_fn(
-                    sp, jg, st, sd, shape=tuple(rt.lattice.shape),
-                    kind=rt.diag_kind, kp=rt.diag, gibbs=gibbs,
-                    interpret=interpret,
-                )
-
-            n_out = 3 if self.fuse_measure else 1
-        elif rt.gen:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems // rt.gen)
-            gen_fn = (
-                pallas_sweep_diag.sweep_gen_fused
-                if self.fuse_measure
-                else pallas_sweep_diag.sweep_gen
-            )
-            shape3, *gen_rest = rt.gen_info
-
-            def call(sp, jg, st, sd):
-                return gen_fn(
-                    sp, jg, st, sd, shape=shape3, gen=tuple(gen_rest),
-                    kp=rt.gen, gibbs=gibbs, interpret=interpret,
-                )
-
-            n_out = 3 if self.fuse_measure else 1
-        elif rt.pack_k:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems // rt.pack_k)
-
-            def call(sp, jg, st, sd):
-                return pallas_sweep.sweep_2d_packed(
-                    sp, jg, st, sd, shape=rt.lattice.shape, k=rt.pack_k,
-                    gibbs=gibbs, interpret=interpret,
-                )
-
-            n_out = 1
-        elif rt.tri_pack:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems // rt.tri_pack)
-
-            def call(sp, jg, st, sd):
-                return pallas_sweep_tri.sweep_tri_packed(
-                    sp, jg, st, sd, shape=rt.lattice.shape, k=rt.tri_pack,
-                    gibbs=gibbs, interpret=interpret,
-                )
-
-            n_out = 1
-        elif rt.tri:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems)
-            tri_fn = (
-                pallas_sweep_tri.sweep_tri_fused
-                if self.fuse_measure
-                else pallas_sweep_tri.sweep_tri
-            )
-
-            def call(sp, jg, st, sd):
-                return tri_fn(
-                    sp, jg, st, sd, shape=rt.lattice.shape, gibbs=gibbs,
-                    interpret=interpret,
-                )
-
-            n_out = 3 if self.fuse_measure else 1
-        elif self.fuse_measure:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems)
-
-            def call(sp, jg, st, sd):
-                return pallas_sweep.sweep_2d_fused(
-                    sp, jg, st, sd, shape=rt.lattice.shape, gibbs=gibbs,
-                    interpret=interpret,
-                )
-
-            n_out = 3
-        else:
-            seeds = pallas_sweep.make_seeds(skeys, rt.n_systems)
-
-            def call(sp, jg, st, sd):
-                return pallas_sweep.sweep_2d(
-                    sp, jg, st, sd, shape=rt.lattice.shape, gibbs=gibbs,
-                    interpret=interpret,
-                )
-
-            n_out = 1
-
-        mesh = rt.mesh
-        if mesh is not None and mesh.devices.size > 1:
-            from jax.sharding import PartitionSpec as P
-
-            axes = ("disorder", "systems") if "systems" in mesh.axis_names else (
-                "disorder",
-            )
-            batch = P(*axes)
-            out_specs = (batch, batch, batch) if n_out == 3 else batch
-            call = jax.shard_map(
-                call,
-                mesh=mesh,
-                in_specs=(batch, P("disorder"), batch, batch),
-                out_specs=out_specs,
-                # pallas_call carries no varying-mesh-axes metadata; the
-                # outputs vary exactly along the batch specs given above
-                check_vma=False,
-            )
-
-        out = call(spins, rt.jgrids, sys_temps, seeds)
-        if n_out == 3:
-            spins, e, m = out
-            return spins, (e, m)
-        return out, None
-
     def _cc_many(self, active_flat):
         """Connected components over a flat graph batch.
 
         ``active_flat``: ``bool [B, n_spins, n_nb]`` (disorder-major when a
-        mesh shards disorder).  Dispatch: the single-graph Pallas kernel for
-        tiny batches of big graphs (the 256^2 SW stress case), the batched
-        packing kernel for many small graphs, the vectorized jnp loop
-        otherwise.
+        mesh shards disorder).  Under a ``space`` mesh the banded CC runs
+        inside ``shard_map``; otherwise one vmapped fixed point labels the
+        whole batch.
         """
-        import os
-
         rt = self.rt
-        b = active_flat.shape[0]
-        interp = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        if self.cc_pallas:
-            return jax.vmap(
-                lambda a: pallas_cc.connected_components_2d(
-                    a, shape=tuple(rt.lattice.shape), interpret=interp,
-                    log_cc=self.cc_log,
-                )
-            )(active_flat)
-        if self.cc_batch:
-            kp, ks = self._ccb
-            tile = kp * ks
-
-            def call(a):
-                nloc = a.shape[0]
-                pad = (-nloc) % tile
-                if pad:
-                    a = jnp.concatenate(
-                        [a, jnp.zeros((pad,) + a.shape[1:], a.dtype)], 0
-                    )
-                lab = pallas_cc_batch.connected_components_batch(
-                    a, shape=tuple(rt.lattice.shape), kp=kp, ks=ks,
-                    interpret=interp, tri=self._lat_tri, log_cc=self.cc_log,
-                    offsets=self._cc_gen_offs,
-                )
-                return lab[:nloc]
-
-            mesh = rt.mesh
-            if mesh is not None and mesh.devices.size > 1:
-                # Graph batches are disorder-major (every caller flattens
-                # [d, k, ...] -> [d*k, ...]) and labels are graph-local, so
-                # any even contiguous split over the combined mesh axes
-                # keeps whole graphs per device at full kernel speed; tile
-                # padding happens per shard inside the map.  Batches that
-                # do not divide over the mesh (some overlap-task counts
-                # under a systems axis) keep the XLA-partitioned jnp path.
-                if active_flat.shape[0] % mesh.devices.size:
-                    return jax.vmap(
-                        lambda a: cl.connected_components(a, rt.geom)
-                    )(active_flat)
-                spec = _flat_batch_spec(mesh)
-                call = jax.shard_map(
-                    call, mesh=mesh, in_specs=spec,
-                    out_specs=spec, check_vma=False,
-                )
-            return call(active_flat)
         mesh = rt.mesh
-        if (
-            getattr(self, "cc_band", False)
-            and active_flat.shape[0] % self._cc_band_b == 0
-        ):
+        if self.cc_band and active_flat.shape[0] % self._cc_band_b == 0:
             from jax.sharding import PartitionSpec as P
 
             batch = tuple(
                 a for a in ("disorder", "systems") if a in mesh.axis_names
             )
-            interp = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
             call = jax.shard_map(
                 lambda a: cl.connected_components_banded(
                     a, rt.geom, axis="space",
                     sync_axes=tuple(mesh.axis_names),
-                    pallas=getattr(self, "cc_band_pallas", False),
-                    interpret=interp, log_cc=self.cc_log,
                 ),
                 mesh=mesh,
                 in_specs=P(batch if batch else None, "space", None),
@@ -1482,403 +528,36 @@ class LoopProgram:
                 check_vma=False,
             )
             return call(active_flat)
-        if getattr(self, "cc_band", False):
+        if self.cc_band:
             # The plan string advertises cc=jnp-banded; make the per-call
             # fallback (batch not divisible over the disorder/systems axes,
             # e.g. odd overlap-task counts) visible rather than silent.
-            from ..utils.log import log_once as _log_once
+            from ..utils.log import log_once
 
-            _log_once(
+            log_once(
                 "banded CC: graph batch of "
                 f"{active_flat.shape[0]} does not divide the mesh batch "
-                f"factor {self._cc_band_b}; this call uses the plain jnp CC"
+                f"factor {self._cc_band_b}; this call uses the plain CC"
             )
         return jax.vmap(lambda a: cl.connected_components(a, rt.geom))(
             active_flat
         )
 
-    def _winding_many(self, act_flat, lab_flat):
-        """Per-graph torus-wrapping flags ``(wx, wy) [B]`` for a flat batch
-        of 2D square bond graphs — the Pallas kernel when gated
-        (``winding_kernel``), else one vmapped jnp BFS.  Flags are
-        settle-order-independent (a spanning-tree potential violates on a
-        chord iff its fundamental cycle winds), so both paths produce the
-        same booleans."""
-        rt = self.rt
-        if getattr(self, "winding_kernel", False):
-            b = act_flat.shape[0]
-            kp, ks = (
-                self._ccb
-                if self._ccb is not None
-                else pallas_cc_batch.cc_batch_factors(rt.lattice, b)
-            )
-            tile = kp * ks
-            pad = (-b) % tile
-            a, lab = act_flat, lab_flat
-            if pad:
-                # pad graphs must be bond-free with IDENTITY labels (every
-                # site its own settled root) or their settle loop never
-                # terminates
-                a = jnp.concatenate(
-                    [a, jnp.zeros((pad,) + a.shape[1:], a.dtype)]
-                )
-                ident = jnp.broadcast_to(
-                    jnp.arange(rt.n_spins, dtype=lab.dtype),
-                    (pad, rt.n_spins),
-                )
-                lab = jnp.concatenate([lab, ident])
-            import os as _os
-
-            interp = _os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-            wx, wy = pallas_cc_batch.winding_batch(
-                a, lab, shape=tuple(rt.lattice.shape), kp=kp, ks=ks,
-                interpret=interp,
-            )
-            return wx[:b], wy[:b]
-        f = jax.vmap(lambda a2, l2: cl.winding_flags(a2, l2, rt.geom))
-        return f(act_flat, lab_flat)
-
-    def _sweep_phase_halo(self, spins, sid, keys):
-        """Checkerboard sweep under the ``space`` mesh axis via the
-        halo-exchange color kernel (two single-color Pallas passes per
-        sweep; a ``ppermute`` ring carries the band-edge rows between
-        shards before each pass, so the second color sees the first
-        color's updates across shard boundaries — the stencil semantics of
-        the unsharded kernel, at full per-chip kernel speed).
-
-        Returns ``(spins, fused_em_or_None)``: when :attr:`fuse_measure`,
-        the color-1 kernel also emits per-band raw (energy, spin) sums that
-        a psum over ``space`` turns into the exact global per-system
-        measurement — the separate jnp measurement stencil (and its
-        cross-shard halo collectives) disappears."""
-        import os
-
-        from jax.sharding import PartitionSpec as P
-
-        rt = self.rt
-        mesh = rt.mesh
-        ns = mesh.shape["space"]
-        h, w = rt.lattice.shape
-        hl = h // ns
-        gibbs = self.cfg.sweep_mode == "gibbs"
-        measure = self.fuse_measure
-        pack = rt.halo2d_k  # lane-packed narrow-lattice variant (0 = direct)
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        sys_temps = jax.vmap(lambda si: slot_temps_for_systems(si, rt.temps))(sid)
-        skeys = jax.vmap(lambda k: jax.random.fold_in(k, _PH_SWEEP))(keys)
-        seeds = pallas_sweep.make_seeds(
-            skeys, rt.n_systems // pack if pack else rt.n_systems
-        )
-        fwd = [(j, (j + 1) % ns) for j in range(ns)]
-        bwd = [(j, (j - 1) % ns) for j in range(ns)]
-
-        def shard_fn(sp, jg, st, sd):
-            idx = jax.lax.axis_index("space").astype(jnp.int32)
-            off = (idx * hl) * jnp.ones((1, 1), jnp.int32)
-            if pack:
-                s4 = jax.vmap(
-                    lambda s: pallas_sweep.pack_spins(s, (hl, w), pack)
-                )(sp)  # [d, g, hl, pack*w]
-            else:
-                s4 = sp.reshape(sp.shape[0], sp.shape[1], hl, w)
-            # independent PRNG stream per (shard, color) pass
-            sd = sd ^ ((idx + 1) * jnp.int32(-1640531527))
-            em = ()
-            for color in (0, 1):
-                sdc = sd ^ jnp.int32((-2048144789, 1779033703)[color])
-                hup = jax.lax.ppermute(s4[:, :, hl - 1:, :], "space", fwd)
-                hdn = jax.lax.ppermute(s4[:, :, :1, :], "space", bwd)
-                if pack:
-                    outp = pallas_sweep.sweep_2d_halo_color_packed(
-                        s4, jg, st, sdc, hup, hdn, off,
-                        shape_local=(hl, w), k=pack, color=color,
-                        gibbs=gibbs,
-                        with_measure=measure and color == 1,
-                        interpret=interpret,
-                    )
-                    if measure and color == 1:
-                        s4, e_part, m_part = outp
-                        em = (
-                            jax.lax.psum(e_part, "space") / np.float32(h * w),
-                            jax.lax.psum(m_part, "space"),
-                        )
-                    else:
-                        s4 = outp
-                    continue
-                out = pallas_sweep.sweep_2d_halo_color(
-                    s4, jg, st, sdc, hup, hdn, off,
-                    shape_local=(hl, w), color=color, gibbs=gibbs,
-                    with_measure=measure and color == 1,
-                    interpret=interpret,
-                )
-                if measure and color == 1:
-                    s4, e_part, m_part = out
-                    em = (
-                        jax.lax.psum(e_part, "space") / np.float32(h * w),
-                        jax.lax.psum(m_part, "space"),
-                    )
-                else:
-                    s4 = out
-            if pack:
-                sp_out = jax.vmap(
-                    lambda s: pallas_sweep.unpack_spins(s, (hl, w), pack)
-                )(s4)
-                return (sp_out.reshape(sp.shape),) + em
-            return (s4.reshape(sp.shape),) + em
-
-        names = mesh.axis_names
-        dis = "disorder" if "disorder" in names else None
-        sys_ = "systems" if "systems" in names else None
-        batch = P(dis, sys_)
-        spins_spec = P(dis, sys_, "space")
-        call = jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(spins_spec, P(dis, None, "space", None), batch, batch),
-            out_specs=(spins_spec,) + ((batch, batch) if measure else ()),
-            check_vma=False,
-        )
-        out = call(spins, rt.jgrids, sys_temps, seeds)
-        if measure:
-            return out[0], (out[1], out[2])
-        return out[0], None
-
-    def _sweep_phase_halo3d(self, spins, sid, keys):
-        """Checkerboard sweep of a 3D lattice under the ``space`` mesh axis
-        via the halo-exchange color kernel (two single-color Pallas passes
-        per sweep; a ``ppermute`` ring carries the slab-edge planes between
-        shards before each pass — the 3D analog of
-        :meth:`_sweep_phase_halo`, so lattices too big for one chip keep a
-        Pallas fast path instead of dropping to the jnp stencils).
-
-        Returns ``(spins, fused_em_or_None)`` like the 2D variant: under
-        :attr:`fuse_measure` the color-1 kernel emits per-slab raw sums,
-        exact globally after the psum over ``space``."""
-        import os
-
-        from jax.sharding import PartitionSpec as P
-
-        rt = self.rt
-        mesh = rt.mesh
-        ns = mesh.shape["space"]
-        l0, l1, l2 = rt.lattice.shape
-        block = l1 * l2
-        l0l = l0 // ns
-        kp = rt.halo3d
-        gibbs = self.cfg.sweep_mode == "gibbs"
-        measure = self.fuse_measure
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        sys_temps = jax.vmap(lambda si: slot_temps_for_systems(si, rt.temps))(sid)
-        skeys = jax.vmap(lambda k: jax.random.fold_in(k, _PH_SWEEP))(keys)
-        seeds = pallas_sweep.make_seeds(skeys, rt.n_systems // kp)
-        fwd = [(j, (j + 1) % ns) for j in range(ns)]
-        bwd = [(j, (j - 1) % ns) for j in range(ns)]
-
-        def shard_fn(sp, jg, st, sd):
-            idx = jax.lax.axis_index("space").astype(jnp.int32)
-            off = (idx * l0l) * jnp.ones((1, 1), jnp.int32)
-            s4 = jax.vmap(
-                lambda s: pallas_sweep3d.pack_rows_3d(s, l0l, block, kp, 1)
-            )(sp)  # [d, g, l0l, kp*block]
-            # independent PRNG stream per (shard, color) pass
-            sd = sd ^ ((idx + 1) * jnp.int32(-1640531527))
-            em = ()
-            for color in (0, 1):
-                sdc = sd ^ jnp.int32((-2048144789, 1779033703)[color])
-                hup = jax.lax.ppermute(s4[:, :, l0l - 1:, :], "space", fwd)
-                hdn = jax.lax.ppermute(s4[:, :, :1, :], "space", bwd)
-                out = pallas_sweep3d.sweep_3d_halo_color(
-                    s4, jg, st, sdc, hup, hdn, off,
-                    shape_local=(l0l, l1, l2), kp=kp, color=color,
-                    gibbs=gibbs, with_measure=measure and color == 1,
-                    interpret=interpret,
-                )
-                if measure and color == 1:
-                    s4, e_part, m_part = out
-                    em = (
-                        jax.lax.psum(e_part, "space")
-                        / np.float32(l0 * block),
-                        jax.lax.psum(m_part, "space"),
-                    )
-                else:
-                    s4 = out
-            sp_out = jax.vmap(
-                lambda s: pallas_sweep3d.unpack_rows_3d(s, l0l, block, kp, 1)
-            )(s4).reshape(sp.shape)
-            return (sp_out,) + em
-
-        names = mesh.axis_names
-        dis = "disorder" if "disorder" in names else None
-        sys_ = "systems" if "systems" in names else None
-        batch = P(dis, sys_)
-        spins_spec = P(dis, sys_, "space")
-        call = jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(spins_spec, P(dis, None, "space", None), batch, batch),
-            out_specs=(spins_spec,) + ((batch, batch) if measure else ()),
-            check_vma=False,
-        )
-        out = call(spins, rt.jgrids, sys_temps, seeds)
-        if measure:
-            return out[0], (out[1], out[2])
-        return out[0], None
-
-    def _sweep_phase_halo_gen(self, spins, sid, keys):
-        """Generic-offset multicolor sweep under the ``space`` mesh axis:
-        one Pallas pass per color with ``m = max |offset[0]|`` halo rows
-        ppermuted before each pass (later colors must see earlier colors'
-        cross-shard updates) — triangular, BCC, FCC and custom offset
-        tables keep a kernel when the lattice is row-band sharded, the
-        generalization of :meth:`_sweep_phase_halo` the round-4 verdict
-        asked for.  Returns ``spins`` (no fused measurement: the
-        odd-endpoint counting trick is two-color-specific; measured sweeps
-        recompute via the jnp stencil under GSPMD)."""
-        import os
-
-        from jax.sharding import PartitionSpec as P
-
-        rt = self.rt
-        mesh = rt.mesh
-        ns = mesh.shape["space"]
-        shape3, offsets, periods, table, n_colors = rt.gen_info
-        gen = (offsets, periods, table, n_colors)
-        l0, l1, l2 = shape3
-        block = l1 * l2
-        hl = l0 // ns
-        m = rt.halo_gen_m
-        gibbs = self.cfg.sweep_mode == "gibbs"
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        sys_temps = jax.vmap(
-            lambda si: slot_temps_for_systems(si, rt.temps)
-        )(sid)
-        skeys = jax.vmap(lambda k: jax.random.fold_in(k, _PH_SWEEP))(keys)
-        seeds = pallas_sweep.make_seeds(skeys, rt.n_systems)
-        fwd = [(j, (j + 1) % ns) for j in range(ns)]
-        bwd = [(j, (j - 1) % ns) for j in range(ns)]
-
-        def shard_fn(sp, jg, st, sd):
-            idx = jax.lax.axis_index("space").astype(jnp.int32)
-            off = (idx * hl) * jnp.ones((1, 1), jnp.int32)
-            d, S = sp.shape[:2]
-            band = sp.reshape(d, S, hl, block)
-            # zero coupling rows for the halos: halo-row outputs are
-            # discarded, their field need not be meaningful
-            jg_ext = jnp.pad(jg, ((0, 0), (0, 0), (m, m), (0, 0)))
-            sd = sd ^ ((idx + 1) * jnp.int32(-1640531527))
-            for c in range(n_colors):
-                sdc = sd ^ (jnp.int32(-2048144789) * jnp.int32(c + 1))
-                hup = jax.lax.ppermute(
-                    band[:, :, hl - m:, :], "space", fwd
-                )
-                hdn = jax.lax.ppermute(band[:, :, :m, :], "space", bwd)
-                sext = jnp.concatenate([hup, band, hdn], axis=2)
-                oute = pallas_sweep_diag.sweep_gen_halo_color(
-                    sext, jg_ext, st, sdc, off,
-                    shape_local=(hl, l0, l1, l2), gen=gen, color=c, m=m,
-                    gibbs=gibbs, interpret=interpret,
-                )
-                band = oute[:, :, m:m + hl, :]
-            return band.reshape(sp.shape)
-
-        names = mesh.axis_names
-        dis = "disorder" if "disorder" in names else None
-        sys_ = "systems" if "systems" in names else None
-        batch = P(dis, sys_)
-        spins_spec = P(dis, sys_, "space")
-        call = jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(spins_spec, P(dis, None, "space", None), batch, batch),
-            out_specs=spins_spec,
-            check_vma=False,
-        )
-        return call(spins, rt.jgrids, sys_temps, seeds)
-
-    def _fk_phase_batched(self, spins, sid, keys, want_em=False):
+    def _fk_phase_batched(self, spins, sid, keys):
         """FK update over the full ``[n_disorder, n_systems]`` batch.
 
         Bond activation and the post-CC work stay vmapped per disorder; the
         CC fixed point runs ONCE over the flattened graph batch through
         :meth:`_cc_many` (the reference runs per-graph union-find inside its
         rayon fan-out, clusters/fk.rs:28-171 — here the batch is the
-        parallelism axis).  Returns ``(spins, csd_t, obs_delta, em)`` with
-        leading disorder axes; ``em`` is the fused-kernel post-update
-        ``(e, m)`` pair when ``want_em`` (fk_kernel path only), else None.
+        parallelism axis).  Returns ``(spins, csd_t, obs_delta)`` with
+        leading disorder axes.
         """
         rt = self.rt
         cfgc = self.cfg.cluster_update
         wolff = cfgc.mode == "wolff"
         update = cfgc.action == "update"
         d = spins.shape[0]
-
-        if self.fk_kernel or self.fk_kernel_obs:
-            observe = self.fk_kernel_obs
-            new_spins, em, labels, masks = self._fk_fused(
-                spins, sid, keys, with_measure=want_em,
-                with_labels=self.collect_fk, with_masks=observe,
-            )
-            if observe:
-                # observe mutates nothing (fk.rs:140-142): keep the
-                # original spins; the kernel's flip work is discarded
-                new_spins = spins
-            csd_t = None
-            obs_delta = None
-            if self.collect_fk:
-                # CSD from the kernel's resident CC labels (fk.rs:86-142
-                # collects inline) — collect-stats AND observe runs keep
-                # the fused kernel and its hardware-PRNG bond stream, so
-                # the collected graphs are the production mechanism's (the
-                # staged path's threefry twin is no longer forced).
-                counts = jax.vmap(jax.vmap(cl.component_counts))(labels)
-                csd_sys = jax.vmap(jax.vmap(cl.csd_histogram))(counts)
-                csd_t = jax.vmap(lambda cs, sd: cs[sd].sum(0))(csd_sys, sid)
-            if observe:
-                # bond-fraction/winding from the kernel's bond masks; the
-                # per-slot -> per-temp reduction mirrors the staged path.
-                # Winding settles once over the whole flat graph batch
-                # (kernel or one vmapped BFS, _winding_many) instead of
-                # per graph inside the vmap.
-                if self.with_winding:
-                    wxf, wyf = self._winding_many(
-                        masks.reshape(
-                            -1, rt.n_spins, rt.lattice.n_neighbors
-                        ),
-                        labels.reshape(-1, rt.n_spins),
-                    )
-                    wpre = (
-                        wxf.reshape(labels.shape[:2]),
-                        wyf.reshape(labels.shape[:2]),
-                    )
-                    obs_sys = jax.vmap(jax.vmap(
-                        lambda act, cnt, lab, wx, wy: cl.graph_observation(
-                            act, cnt, lab, rt.geom, True,
-                            winding_pre=(wx, wy),
-                        )
-                    ))(masks, counts, labels, *wpre)
-                else:
-                    obs_sys = jax.vmap(jax.vmap(
-                        lambda act, cnt, lab: cl.graph_observation(
-                            act, cnt, lab, rt.geom, False
-                        )
-                    ))(masks, counts, labels)
-
-                def slot_obs(obs_d, sid_d, csd_td):
-                    slot = lambda x: jnp.swapaxes(x[sid_d], 0, 1)
-                    obs_slot = cl.GraphObservation(
-                        top4=slot(obs_d.top4),
-                        active_bonds=slot(obs_d.active_bonds),
-                        winding_x=slot(obs_d.winding_x),
-                        winding_y=slot(obs_d.winding_y),
-                        large_components=slot(obs_d.large_components),
-                    )
-                    return _sum_slots_obs(
-                        obs_slot, csd_td, rt.n_replicas, rt.n_spins,
-                        rt.lattice.n_neighbors,
-                    )
-
-                obs_delta = jax.vmap(slot_obs)(obs_sys, sid, csd_t)
-            return new_spins, csd_t, obs_delta, em
 
         def bonds_per_disorder(spins_d, sid_d, key_d, coup_d):
             sys_temps = slot_temps_for_systems(sid_d, rt.temps)
@@ -1901,27 +580,8 @@ class LoopProgram:
             )
         ).reshape(d, rt.n_systems, rt.n_spins)
 
-        # winding settles once over the whole flat graph batch (kernel or
-        # one vmapped BFS, _winding_many) — the per-graph BFS inside the
-        # vmap was ~10 ms/graph at 256^2 T_c, and this staged branch is
-        # the PEAPODS_DISABLE_FKKERNEL fallback whose observe cost should
-        # track the fused path's
-        if self.observe_fk and self.with_winding:
-            wxf, wyf = self._winding_many(
-                active.reshape(-1, rt.n_spins, rt.lattice.n_neighbors),
-                labels.reshape(-1, rt.n_spins),
-            )
-            wpre_sys = (
-                wxf.reshape(d, rt.n_systems),
-                wyf.reshape(d, rt.n_systems),
-            )
-        else:
-            zb = jnp.zeros((d, rt.n_systems), bool)
-            wpre_sys = (zb, zb)
-
-        def finish_per_disorder(spins_d, active_d, labels_d, keys_d, sid_d,
-                                wx_d, wy_d):
-            def one(s, act, lab, k, wx, wy):
+        def finish_per_disorder(spins_d, active_d, labels_d, keys_d, sid_d):
+            def one(s, act, lab, k):
                 counts = (
                     cl.component_counts(lab)
                     if (self.collect_fk or self.observe_fk)
@@ -1936,10 +596,7 @@ class LoopProgram:
                 csd = cl.csd_histogram(counts) if self.collect_fk else None
                 obs = (
                     cl.graph_observation(
-                        act, counts, lab, rt.geom, self.with_winding,
-                        winding_pre=(
-                            (wx, wy) if self.with_winding else None
-                        ),
+                        act, counts, lab, rt.geom, self.with_winding
                     )
                     if self.observe_fk
                     else None
@@ -1947,7 +604,7 @@ class LoopProgram:
                 return new_s, csd, obs
 
             new_spins, csd_sys, obs_sys = jax.vmap(one)(
-                spins_d, active_d, labels_d, keys_d, wx_d, wy_d
+                spins_d, active_d, labels_d, keys_d
             )
             csd_t = None
             obs_delta = None
@@ -1970,166 +627,20 @@ class LoopProgram:
                 )
             return new_spins, csd_t, obs_delta
 
-        out = jax.vmap(finish_per_disorder)(
-            spins, active, labels, keys_flip, sid, *wpre_sys
+        return jax.vmap(finish_per_disorder)(
+            spins, active, labels, keys_flip, sid
         )
-        return out + (None,)
-
-    def _fk_fused(self, spins, sid, keys, with_measure=False,
-                  with_labels=False, with_masks=False):
-        """FK update through the fused kernel: one ``pallas_call`` over the
-        packed ``[n_disorder * n_systems]`` graph batch (pad/pack/kernel/
-        unpack per disorder shard under a mesh, like ``_event_fused``).
-
-        Key discipline matches the staged path exactly: per system
-        ``kb, kf = split(split(fold_in(key_d, _PH_FK), S)[s])`` — ``kf``
-        feeds the bitwise flip scalars; ``kb`` (the staged path's bond-draw
-        key) seeds the hardware PRNG stream per tile.
-
-        Returns ``(spins, em_or_None, labels_or_None, masks_or_None)``;
-        labels are unpacked ``int32 [d, S, n_spins]`` graph-local
-        min-site-index cluster ids (the Wolff kernel's -1 seed-cluster
-        marker is rewritten to that cluster's min site index, matching the
-        staged path's :func:`~peapods_tpu.ops.cluster.connected_components`
-        convention); masks (``with_masks``, the full-observe path) are the
-        kernel's FK bond activations ``bool [d, S, n_spins, n_dirs]``.
-        """
-        import os
-
-        rt = self.rt
-        wolff = self.cfg.cluster_update.mode == "wolff"
-        interp = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        kp, ks = self._fkb
-        tile = kp * ks
-        d, S = spins.shape[:2]
-        n = rt.n_spins
-        shape = tuple(rt.lattice.shape)
-        l0, block = shape[0], n // shape[0]
-
-        def keys_per_d(key_d):
-            ks2 = jax.random.split(jax.random.fold_in(key_d, _PH_FK), S)
-            pair = jax.vmap(jax.random.split)(ks2)
-            return pair[:, 0], pair[:, 1]
-
-        kb, kf = jax.vmap(keys_per_d)(keys)
-        sys_temps = jax.vmap(
-            lambda si: slot_temps_for_systems(si, rt.temps)
-        )(sid)  # [d, S]
-        b0 = d * S
-        if jnp.issubdtype(kf.dtype, jax.dtypes.prng_key):
-            kf_flat = kf.reshape(b0)
-            kb_words = jax.random.key_data(kb.reshape(b0))
-        else:  # legacy uint32 [..., 2] key arrays
-            kf_flat = kf.reshape(b0, -1)
-            kb_words = kb.reshape(b0, -1)
-        gscal = pallas_event.fk_scalars(wolff, kf_flat, n)
-        words = jax.lax.bitcast_convert_type(
-            kb_words.astype(jnp.uint32), jnp.int32
-        )  # [b0, 2]
-        gtemp = sys_temps.reshape(b0, 1).astype(jnp.float32)
-        s_flat = spins.reshape(b0, n)
-
-        def run_local(sp, gscal, gtemp, words, j):
-            nloc = sp.shape[0]
-            pad = (-nloc) % tile
-            if pad:
-                zrow = lambda x: jnp.zeros((pad,) + x.shape[1:], x.dtype)
-                sp = jnp.concatenate([sp, zrow(sp)], 0)
-                gscal = jnp.concatenate([gscal, zrow(gscal)], 0)
-                # padded graphs get T=1 so the bond probability stays finite
-                # (their couplings are 0, so no bond ever activates)
-                gtemp = jnp.concatenate(
-                    [gtemp, jnp.ones((pad, 1), jnp.float32)], 0
-                )
-                words = jnp.concatenate([words, zrow(words)], 0)
-            g_tiles = (nloc + pad) // tile
-            s_p = pallas_cc_batch._pack(sp, l0, block, kp, ks)
-            out = pallas_event.fk_update_batch(
-                s_p,
-                gscal.reshape(g_tiles, tile, 3),
-                gtemp.reshape(g_tiles, tile, 1),
-                words.reshape(g_tiles, tile, 2)[:, :1, :],
-                j,
-                wolff=wolff, shape=shape, kp=kp, ks=ks, interpret=interp,
-                with_measure=with_measure, with_labels=with_labels,
-                with_masks=with_masks,
-                tri=self._lat_tri, log_cc=self.cc_log,
-            )
-            if not isinstance(out, tuple):
-                out = (out,)
-            out = list(out)
-            parts = [
-                pallas_cc_batch._unpack(out.pop(0), l0, block, kp, ks)[:nloc]
-            ]
-            if with_measure:
-                parts += [
-                    out.pop(0).reshape(-1)[:nloc],
-                    out.pop(0).reshape(-1)[:nloc],
-                ]
-            if with_labels:
-                parts.append(
-                    pallas_cc_batch._unpack(
-                        out.pop(0), l0, block, kp, ks
-                    )[:nloc]
-                )
-            if with_masks:
-                m = out.pop(0)  # int8 [G, n_dirs, rows, lanes]
-                parts.append(jnp.stack(
-                    [
-                        pallas_cc_batch._unpack(
-                            m[:, di], l0, block, kp, ks
-                        )[:nloc]
-                        for di in range(m.shape[1])
-                    ],
-                    axis=-1,
-                ))
-            return tuple(parts)
-
-        n_out = (
-            1 + (2 if with_measure else 0) + (1 if with_labels else 0)
-            + (1 if with_masks else 0)
-        )
-        mesh = rt.mesh
-        if mesh is not None and mesh.devices.size > 1:
-            spec = _flat_batch_spec(mesh)
-            run_local = jax.shard_map(
-                run_local, mesh=mesh, in_specs=(spec,) * 5,
-                out_specs=(spec,) * n_out,
-                check_vma=False,
-            )
-        out = list(run_local(s_flat, gscal, gtemp, words, self._fk_j))
-        new_spins = out.pop(0).reshape(d, S, n)
-        em = None
-        if with_measure:
-            em = (out.pop(0).reshape(d, S), out.pop(0).reshape(d, S))
-        labels = None
-        if with_labels:
-            labels = out.pop(0).reshape(d, S, n)
-            if wolff:
-                # rewrite the kernel's -1 seed-cluster marker to that
-                # cluster's min site index (the staged labels convention)
-                neg = labels == -1
-                idx = jnp.arange(n, dtype=labels.dtype)
-                mn = jnp.min(
-                    jnp.where(neg, idx, jnp.int32(n)), axis=-1, keepdims=True
-                )
-                labels = jnp.where(neg, mn, labels)
-        masks = None
-        if with_masks:
-            masks = out.pop(0).reshape(d, S, n, -1) != 0
-        return new_spins, em, labels, masks
 
     def _run_tasks_batched(self, mode, tspins, tkeys, with_snapshot):
         """Run one overlap mode over the FULL task batch, with the CC fixed
         points hoisted through :meth:`_cc_many` (one batched labeling per CC
         round instead of one per task — the reference's per-task union-find
-        over rayon, clusters/overlap.rs:64-144, becomes a packed batch).
+        over rayon, clusters/overlap.rs:64-144, becomes one batch).
 
         ``tspins``: int8 ``[n_disorder, n_tasks, group_size, n_spins]``
-        (tasks temp-major); ``tkeys``: ``[n_disorder, n_tasks]`` keys.  The
-        per-task key splits and draw order match the monolithic task
-        kernels bitwise.  Returns :class:`OverlapMoveOut` with leading
-        ``[n_disorder, n_tasks]`` axes.
+        (tasks temp-major); ``tkeys``: ``[n_disorder, n_tasks]`` keys.
+        Returns :class:`OverlapMoveOut` with leading ``[n_disorder,
+        n_tasks]`` axes.
         """
         rt = self.rt
         h = self.cfg.overlap_cluster
@@ -2143,105 +654,6 @@ class LoopProgram:
         task_temps = jnp.repeat(rt.temps, n_groups)  # [n_tasks]
         flat = lambda x: x.reshape((d * n_tasks,) + x.shape[2:])
         unflat = lambda x: x.reshape((d, n_tasks) + x.shape[1:])
-
-        # collect-only stats (CSD + top4) derive from the kernel's resident
-        # CC labels; full observe mode additionally takes the kernel's bond
-        # masks (bond fraction / winding) and discards the flipped spins
-        # (observe mutates nothing, overlap.rs:146-339) — both keep the
-        # fused pair-event path and its hardware-PRNG graph stream.  Only
-        # snapshots (grey labels) stay staged.
-        collect_only = (
-            with_stats and not self.observe_overlap and not with_snapshot
-        )
-        observe_only = (
-            with_stats and self.observe_overlap and not with_snapshot
-        )
-        if self.event_kernel and (not (with_stats or with_snapshot)
-                                  or collect_only or observe_only):
-            if g == 2 and pallas_event.supports_event(rt.lattice, 2):
-                if observe_only:
-                    _, labels, masks = self._event_fused(
-                        mode, tspins, tkeys, with_labels=True,
-                        with_masks=True,
-                    )
-                    counts = jax.vmap(jax.vmap(cl.component_counts))(labels)
-                    if winding:
-                        wxf, wyf = self._winding_many(
-                            masks.reshape(
-                                -1, rt.n_spins, rt.lattice.n_neighbors
-                            ),
-                            labels.reshape(-1, rt.n_spins),
-                        )
-                        wpre = (
-                            wxf.reshape(labels.shape[:2]),
-                            wyf.reshape(labels.shape[:2]),
-                        )
-                        obs = jax.vmap(jax.vmap(
-                            lambda act, cnt, lab, wx, wy:
-                            cl.graph_observation(
-                                act, cnt, lab, rt.geom, True,
-                                winding_pre=(wx, wy),
-                            )
-                        ))(masks, counts, labels, *wpre)
-                    else:
-                        obs = jax.vmap(jax.vmap(
-                            lambda act, cnt, lab: cl.graph_observation(
-                                act, cnt, lab, rt.geom, False
-                            )
-                        ))(masks, counts, labels)
-                    return ov.OverlapMoveOut(
-                        tspins, None, None, None,
-                        jax.vmap(jax.vmap(cl.csd_histogram))(counts),
-                        obs,
-                    )
-                if collect_only:
-                    new_tspins, labels = self._event_fused(
-                        mode, tspins, tkeys, with_labels=True
-                    )
-                    counts = jax.vmap(jax.vmap(cl.component_counts))(labels)
-                    zi = jnp.zeros(labels.shape[:2], jnp.int32)
-                    zb = jnp.zeros(labels.shape[:2], bool)
-                    return ov.OverlapMoveOut(
-                        new_tspins, None, None, None,
-                        jax.vmap(jax.vmap(cl.csd_histogram))(counts),
-                        cl.GraphObservation(
-                            top4=jax.vmap(jax.vmap(cl.top4_sizes))(counts),
-                            active_bonds=zi, winding_x=zb, winding_y=zb,
-                            large_components=zi,
-                        ),
-                    )
-                new_tspins = self._event_fused(mode, tspins, tkeys)
-                return ov.OverlapMoveOut(
-                    new_tspins, None, None, None, None, None
-                )
-            if (
-                mode.kind == "houdayer"
-                and not (self.observe_overlap or with_snapshot)
-                and pallas_event.supports_event_houdn(rt.lattice, g)
-            ):
-                if collect_only:
-                    # CSD/top4 from the kernel's resident labels, like the
-                    # g=2 collect path (deterministic houdN bonds: the
-                    # collected stats are bitwise the staged path's)
-                    new_tspins, labels = self._event_fused_houd(
-                        mode, tspins, tkeys, with_labels=True
-                    )
-                    counts = jax.vmap(jax.vmap(cl.component_counts))(labels)
-                    zi = jnp.zeros(labels.shape[:2], jnp.int32)
-                    zb = jnp.zeros(labels.shape[:2], bool)
-                    return ov.OverlapMoveOut(
-                        new_tspins, None, None, None,
-                        jax.vmap(jax.vmap(cl.csd_histogram))(counts),
-                        cl.GraphObservation(
-                            top4=jax.vmap(jax.vmap(cl.top4_sizes))(counts),
-                            active_bonds=zi, winding_x=zb, winding_y=zb,
-                            large_components=zi,
-                        ),
-                    )
-                new_tspins = self._event_fused_houd(mode, tspins, tkeys)
-                return ov.OverlapMoveOut(
-                    new_tspins, None, None, None, None, None
-                )
 
         if mode.kind == "houdayer":
             bonds, aux = jax.vmap(jax.vmap(
@@ -2303,217 +715,6 @@ class LoopProgram:
             out = out._replace(labels=None, blue_labels=None, counts=None)
         return out
 
-    def _event_fused(self, mode, tspins, tkeys, with_labels=False,
-                     with_masks=False):
-        """Run one pair-task overlap event through the fused kernel
-        (ops/pallas_event.py): bonds + CC + flips in one ``pallas_call``.
-
-        ``tspins``: int8 ``[d, n_tasks, 2, n_spins]``; returns the post-move
-        tensor of the same shape.  Per-task scalars come from the exact
-        staged-path key splits; only the per-bond uniforms (jorg/cmr) ride
-        the hardware PRNG instead of threefry.
-
-        ``with_labels``: additionally return the stats-graph CC labels
-        ``int32 [d, n_tasks, n_spins]`` (blue labels for CMR), cleaned to
-        the staged min-site-index convention (the Wolff kernel's -1
-        seed-cluster marker is rewritten).
-
-        ``with_masks``: additionally return the stats-graph bond masks
-        ``bool [d, n_tasks, n_spins, n_dirs]`` (blue bonds for CMR) — the
-        full-observe path derives bond-fraction/winding from them in jnp.
-        """
-        import os
-
-        rt = self.rt
-        wolff = self.cfg.overlap_cluster.cluster_mode == "wolff"
-        interp = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        kp, ks = self._evb
-        tile = kp * ks
-        d, n_tasks = tspins.shape[:2]
-        n = rt.n_spins
-        shape = tuple(rt.lattice.shape)
-        l0, block = shape[0], n // shape[0]
-        b0 = d * n_tasks
-        a = tspins[:, :, 0].reshape(b0, n)
-        b = tspins[:, :, 1].reshape(b0, n)
-        if jnp.issubdtype(tkeys.dtype, jax.dtypes.prng_key):
-            keys_flat = tkeys.reshape(b0)
-            key_words = jax.random.key_data(keys_flat)
-        else:  # legacy uint32 [..., 2] key arrays
-            keys_flat = tkeys.reshape(b0, -1)
-            key_words = keys_flat
-        gscal = pallas_event.event_scalars(
-            mode.kind, wolff, a, b, keys_flat, n
-        )
-        words = jax.lax.bitcast_convert_type(
-            key_words.astype(jnp.uint32), jnp.int32
-        )  # [b0, 2]
-        jt = self._event_jt if mode.kind != "houdayer" else None
-
-        def run_local(a, b, gscal, words, *jt_arg):
-            """Pad/pack/kernel/unpack over one (possibly shard-local)
-            disorder-major task batch."""
-            nloc = a.shape[0]
-            pad = (-nloc) % tile
-            if pad:
-                zrow = lambda x: jnp.zeros((pad,) + x.shape[1:], x.dtype)
-                a = jnp.concatenate([a, zrow(a)], 0)
-                b = jnp.concatenate([b, zrow(b)], 0)
-                pad_scal = jnp.zeros((pad, 6), jnp.int32).at[:, 4].set(n)
-                gscal = jnp.concatenate([gscal, pad_scal], 0)
-                words = jnp.concatenate([words, zrow(words)], 0)
-            g_tiles = (nloc + pad) // tile
-            a_p = pallas_cc_batch._pack(a, l0, block, kp, ks)
-            b_p = pallas_cc_batch._pack(b, l0, block, kp, ks)
-            gscal_t = gscal.reshape(g_tiles, tile, 6)
-            words_t = words.reshape(g_tiles, tile, 2)[:, :1, :]
-            out = pallas_event.overlap_event_batch(
-                a_p, b_p, gscal_t, words_t,
-                jt_arg[0] if jt_arg else None,
-                kind=mode.kind, wolff=wolff, shape=shape, kp=kp, ks=ks,
-                interpret=interp, with_labels=with_labels,
-                with_masks=with_masks,
-                tri=self._lat_tri, log_cc=self.cc_log,
-            )
-            out = list(out)
-            masks_p = out.pop() if with_masks else None
-            parts = [
-                pallas_cc_batch._unpack(o, l0, block, kp, ks)[:nloc]
-                for o in out
-            ]
-            if with_masks:
-                parts.append(jnp.stack(
-                    [
-                        pallas_cc_batch._unpack(
-                            masks_p[:, di], l0, block, kp, ks
-                        )[:nloc]
-                        for di in range(masks_p.shape[1])
-                    ],
-                    axis=-1,
-                ))
-            return tuple(parts)
-
-        n_out = 2 + (1 if with_labels else 0) + (1 if with_masks else 0)
-        mesh = rt.mesh
-        if mesh is not None and mesh.devices.size > 1:
-            # jt was chunk-packed per shard to match the flat split
-            spec = _flat_batch_spec(mesh)
-            nj = 1 if jt is None else 0
-            run_local = jax.shard_map(
-                run_local, mesh=mesh,
-                in_specs=(spec,) * (5 - nj),
-                out_specs=(spec,) * n_out,
-                check_vma=False,
-            )
-        out = (
-            run_local(a, b, gscal, words)
-            if jt is None
-            else run_local(a, b, gscal, words, jt)
-        )
-        new_tspins = jnp.stack(out[:2], axis=1).reshape(d, n_tasks, 2, n)
-        if not (with_labels or with_masks):
-            return new_tspins
-        ret = (new_tspins,)
-        if with_labels:
-            labels = out[2].reshape(d, n_tasks, n)
-            if wolff:
-                # rewrite the -1 seed-cluster marker to that cluster's min
-                # site index (the staged labels convention); tasks whose
-                # Wolff seed search failed have no -1 sites and pass
-                # through unchanged
-                neg = labels == -1
-                idx = jnp.arange(n, dtype=labels.dtype)
-                mn = jnp.min(
-                    jnp.where(neg, idx, jnp.int32(n)), axis=-1, keepdims=True
-                )
-                labels = jnp.where(neg, mn, labels)
-            ret = ret + (labels,)
-        if with_masks:
-            ret = ret + (out[-1].reshape(d, n_tasks, n, -1) != 0,)
-        return ret
-
-    def _event_fused_houd(self, mode, tspins, tkeys, with_labels=False):
-        """Houdayer(N) event (even group sizes > 2) through the fused
-        kernel: balanced-site bonds are deterministic, so this path is
-        bitwise the staged path end-to-end.  ``tspins``: int8
-        ``[d, n_tasks, g, n_spins]``.  ``with_labels``: additionally
-        return the CC labels ``int32 [d, n_tasks, n_spins]`` (cleaned to
-        the staged min-site-index convention) for collect-stats runs."""
-        import os
-
-        rt = self.rt
-        wolff = self.cfg.overlap_cluster.cluster_mode == "wolff"
-        interp = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        g_size = mode.group_size
-        d, n_tasks = tspins.shape[:2]
-        n = rt.n_spins
-        shape = tuple(rt.lattice.shape)
-        l0, block = shape[0], n // shape[0]
-        mesh = rt.mesh
-        n_mesh = 1 if mesh is None else mesh.devices.size
-        kp, ks = pallas_cc_batch.cc_batch_factors(
-            rt.lattice, max(1, rt.n_disorder * n_tasks // n_mesh)
-        )
-        tile = kp * ks
-        b0 = d * n_tasks
-        slots = [tspins[:, :, i].reshape(b0, n) for i in range(g_size)]
-        if jnp.issubdtype(tkeys.dtype, jax.dtypes.prng_key):
-            keys_flat = tkeys.reshape(b0)
-        else:  # legacy uint32 [..., 2] key arrays
-            keys_flat = tkeys.reshape(b0, -1)
-        gscal = pallas_event.houdn_scalars(
-            wolff, tspins.reshape(b0, g_size, n), keys_flat, n
-        )
-
-        def run_local(gscal, *slots):
-            nloc = slots[0].shape[0]
-            pad = (-nloc) % tile
-            if pad:
-                zrow = lambda x: jnp.zeros((pad,) + x.shape[1:], x.dtype)
-                slots = [jnp.concatenate([s, zrow(s)], 0) for s in slots]
-                pad_scal = jnp.zeros((pad, 6), jnp.int32).at[:, 4].set(n)
-                gscal = jnp.concatenate([gscal, pad_scal], 0)
-            g_tiles = (nloc + pad) // tile
-            packs = tuple(
-                pallas_cc_batch._pack(s, l0, block, kp, ks) for s in slots
-            )
-            outs = pallas_event.houdn_event_batch(
-                packs, gscal.reshape(g_tiles, tile, 6),
-                wolff=wolff, shape=shape, kp=kp, ks=ks, interpret=interp,
-                with_labels=with_labels,
-                tri=self._lat_tri, log_cc=self.cc_log,
-            )
-            return tuple(
-                pallas_cc_batch._unpack(o, l0, block, kp, ks)[:nloc]
-                for o in outs
-            )
-
-        if mesh is not None and mesh.devices.size > 1:
-            spec = _flat_batch_spec(mesh)
-            run_local = jax.shard_map(
-                run_local, mesh=mesh,
-                in_specs=(spec,) * (1 + g_size),
-                out_specs=(spec,) * (g_size + (1 if with_labels else 0)),
-                check_vma=False,
-            )
-        outs = run_local(gscal, *slots)
-        new_tspins = jnp.stack(outs[:g_size], axis=1).reshape(
-            d, n_tasks, g_size, n
-        )
-        if not with_labels:
-            return new_tspins
-        labels = outs[g_size].reshape(d, n_tasks, n)
-        if wolff:
-            # rewrite the -1 seed-cluster marker to that cluster's min
-            # site index (the staged labels convention)
-            neg = labels == -1
-            idx = jnp.arange(n, dtype=labels.dtype)
-            mn = jnp.min(
-                jnp.where(neg, idx, jnp.int32(n)), axis=-1, keepdims=True
-            )
-            labels = jnp.where(neg, mn, labels)
-        return new_tspins, labels
-
     def _task_stats(self, out, n_groups):
         """Per-temperature stats reduction of a task batch (temps-major
         order); returns ``(csd_t, top4_frac, obs_delta)`` or Nones."""
@@ -2542,7 +743,7 @@ class LoopProgram:
         Cluster statistics (scatter-heavy) and snapshot payloads are built
         only when collected — XLA does not reliably dead-code them through
         the event ``lax.cond``, and they would otherwise dominate the event
-        cost on TPU.  The branch takes the full ``[n_disorder, ...]`` batch
+        cost.  The branch takes the full ``[n_disorder, ...]`` batch
         so the CC fixed points inside :meth:`_run_tasks_batched` can run
         once over every (disorder, temp, group) task.
         """
@@ -2620,19 +821,15 @@ class LoopProgram:
             )
         return sid, (att, acc_, rtrips, ts)
 
-    def _measure_phase(self, spins, sid, coup, fused=None):
+    def _measure_phase(self, spins, sid, coup):
         """Per-sweep records + histogram deltas + energies for one realization.
 
-        ``fused`` carries (energies, magnetization sums) already computed by
-        the fused sweep kernel; otherwise they are re-derived from spins
-        (the reference's single-source-of-truth recompute, mod.rs:492-509).
+        Energies and magnetizations are re-derived from spins (the
+        reference's single-source-of-truth recompute, mod.rs:492-509).
         """
         rt = self.rt
         n = rt.n_spins
-        if fused is not None:
-            e, msum = fused
-        else:
-            e, msum = energies_and_mags(spins, coup, rt.geom)
+        e, msum = energies_and_mags(spins, coup, rt.geom)
         m_rt = per_slot_values(msum, sid).astype(jnp.float32) / n  # [R, T]
         e_rt = per_slot_values(e, sid)
         rec = jnp.zeros((N_REC, rt.n_temps), jnp.float32)
@@ -2732,37 +929,19 @@ class LoopProgram:
             spins, sid = state["spins"], state["system_ids"]
 
             # 1. single-spin sweep
-            fused_em = None
-            sweep_scope = phase_scope("sweep")
-            sweep_scope.__enter__()
-            if (rt.use_pallas or rt.pack_k or rt.kernel3d or rt.tri
-                    or rt.tri_pack or rt.diag or rt.gen):
-                spins, fused_em = self._sweep_phase_pallas(spins, sid, keys)
-            elif rt.halo2d or rt.halo2d_k:
-                spins, fused_em = self._sweep_phase_halo(spins, sid, keys)
-            elif rt.halo3d:
-                spins, fused_em = self._sweep_phase_halo3d(spins, sid, keys)
-            elif rt.halo_gen:
-                spins = self._sweep_phase_halo_gen(spins, sid, keys)
-            else:
+            with phase_scope("sweep"):
                 spins = jax.vmap(self._sweep_phase)(
                     spins, sid, keys, rt.couplings, rt.coup_bwd
                 )
-            sweep_scope.__exit__(None, None, None)
 
             # 2. FK cluster update
-            # On the fused-FK path the kernel also emits post-update (e, m)
-            # (the reference order is sweep -> FK -> measure), so FK sweeps
-            # skip the jnp recompute below; the skip branch recomputes for
-            # non-FK sweeps — with interval=1 the recompute vanishes.
-            fk_em = c is not None and self.fk_kernel
             if c is not None:
                 do_cluster = (sweep_local % c.interval) == 0
 
                 def run_fk(args):
                     spins, acc = args
-                    new_spins, csd_t, obs_delta, em = self._fk_phase_batched(
-                        spins, sid, keys, want_em=fk_em
+                    new_spins, csd_t, obs_delta = self._fk_phase_batched(
+                        spins, sid, keys
                     )
                     acc = dict(acc)
                     if self.collect_fk:
@@ -2771,37 +950,17 @@ class LoopProgram:
                         acc["fk_obs"] = jax.vmap(
                             lambda a, d: _obs_add(a, d, rec_i32)
                         )(acc["fk_obs"], obs_delta)
-                    if fk_em:
-                        return new_spins, acc, em
                     return new_spins, acc
 
-                def skip_fk(args):
-                    spins, acc = args
-                    if fk_em:
-                        em = jax.vmap(
-                            lambda s, cp: energies_and_mags(s, cp, rt.geom)
-                        )(spins, rt.couplings)
-                        return spins, acc, em
-                    return spins, acc
-
-                out = jax.lax.cond(do_cluster, run_fk, skip_fk, (spins, acc))
-                if fk_em:
-                    spins, acc, fused_em = out
-                else:
-                    spins, acc = out
+                spins, acc = jax.lax.cond(
+                    do_cluster, run_fk, lambda args: args, (spins, acc)
+                )
 
             # 3+4. measurement (energies/mags recomputed from spins)
             with phase_scope("measure"):
-                if fused_em is not None:
-                    rec, hist_delta, e_sys = jax.vmap(
-                        lambda s, si, cp, e, m: self._measure_phase(
-                            s, si, cp, fused=(e, m)
-                        )
-                    )(spins, sid, rt.couplings, *fused_em)
-                else:
-                    rec, hist_delta, e_sys = jax.vmap(self._measure_phase)(
-                        spins, sid, rt.couplings
-                    )
+                rec, hist_delta, e_sys = jax.vmap(self._measure_phase)(
+                    spins, sid, rt.couplings
+                )
             acc = dict(acc)
             acc["rec_sums"], acc["rec_comp"] = _kahan_add(
                 acc["rec_sums"], acc["rec_comp"], rec * rec_f32
@@ -2889,7 +1048,7 @@ class LoopProgram:
                     # spins after measurement THIS sweep (mod.rs:748-754);
                     # observe-mode moves mutate nothing, and recomputing for
                     # them could flip a threshold-marginal PT decision via a
-                    # different f32 sum order than the fused-kernel energies,
+                    # different f32 sum order than the measured energies,
                     # breaking the observe == observer-free bitwise invariant
                     if h is None or h.action != "update":
                         e_use = e_sys
@@ -2955,812 +1114,8 @@ class LoopProgram:
 
     # ------------------------------------------------------------- runners
 
-    # ------------------------------------------------------- mega runner
-
-    def _mega_chunk_runner(self, chunk_len: int):
-        """Chunk runner on the megakernel path: ``lax.scan`` over kernel
-        calls of ``n_inner`` sweeps each; records are assembled from the
-        kernel's per-sweep (e, m) outputs in one vectorized pass per call.
-        """
-        import os
-
-        rt = self.rt
-        cfg = self.cfg
-        # SMEM budget: the kernel's per-sweep outputs are SMEM operands
-        # blocked per grid instance (singleton-middle-axis blocks), so
-        # n_inner is capped against ONE realization's [n_inner, ...] slab.
-        pad = lambda n: -(-max(n, 1) // 128) * 128  # SMEM trailing pad
-        per_inner = (2 * pad(rt.n_systems) + 8) * 4
-        n_inner = min(chunk_len, 256, max(1, 500_000 // per_inner))
-        while chunk_len % n_inner:
-            n_inner -= 1
-        n_calls = chunk_len // n_inner
-        assert chunk_len == n_calls * n_inner
-        gibbs = cfg.sweep_mode == "gibbs"
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        h, w = rt.lattice.shape
-        d = rt.n_disorder
-        n_slots = rt.n_systems  # == n_temps (n_replicas == 1)
-        pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
-
-        def words(keys, ctr, phase):
-            """int32 [d, 2*n_inner] per-(realization, inner-sweep) words."""
-
-            def per_key(key):
-                def per_t(t):
-                    k = jax.random.fold_in(jax.random.fold_in(key, ctr + t), phase)
-                    return jax.lax.bitcast_convert_type(
-                        jax.random.key_data(k).astype(jnp.uint32), jnp.int32
-                    )
-
-                return jax.vmap(per_t)(jnp.arange(n_inner, dtype=jnp.int32))
-
-            return jax.vmap(per_key)(keys).reshape(d, 2 * n_inner)
-
-        def call_body(carry, xs_blk):
-            state, acc = carry
-            counter = state["counter"]
-            sid_flat = state["system_ids"].reshape(d, n_slots)
-            # slot view: slot s holds the spins of system sid_flat[s]
-            spins_slot = jnp.take_along_axis(
-                state["spins"], sid_flat[..., None], axis=1
-            ).reshape(d, n_slots, h, w)
-
-            sweep_w = words(state["base_keys"], counter, _PH_SWEEP)
-            pt_w = words(state["base_keys"], counter, _PH_PT)
-            n_active = (xs_blk >= 0).sum().astype(jnp.int32)
-            sweep_base = jnp.maximum(xs_blk[0], 0)
-            meta = jnp.stack([sweep_base, n_active])[None, :]
-
-            call = functools.partial(
-                pallas_mega.mega_chunk,
-                shape=(h, w),
-                gibbs=gibbs,
-                n_inner=n_inner,
-                n_temps=rt.n_temps,
-                pt_interval=cfg.pt_interval if pt_on else None,
-                pt_full=cfg.pt_schedule == "full_ladder",
-                hot_slot=rt.hot_slot,
-                cold_slot=rt.cold_slot,
-                interpret=interpret,
-            )
-            if rt.mesh is not None and rt.mesh.devices.size > 1:
-                from jax.sharding import PartitionSpec as P
-
-                dspec = P("disorder")
-                call = jax.shard_map(
-                    call,
-                    mesh=rt.mesh,
-                    # temps and meta are replicated; every other operand and
-                    # every output carries the disorder batch axis
-                    in_specs=(dspec, dspec, P(), dspec, dspec, P(), dspec,
-                              dspec, dspec, dspec, dspec, dspec),
-                    out_specs=(dspec,) * 9,
-                    check_vma=False,
-                )
-            out = call(
-                spins_slot,
-                rt.jgrids,
-                rt.temps[None, :],
-                sweep_w,
-                pt_w,
-                meta,
-                sid_flat,
-                state["pt_edge_attempts"]
-                if rt.n_temps > 1
-                else jnp.zeros((d, 1), jnp.int32),
-                state["pt_edge_acceptances"]
-                if rt.n_temps > 1
-                else jnp.zeros((d, 1), jnp.int32),
-                state["pt_round_trips"],
-                state["pt_trip_state"],
-                state["pt_parity"][None, None] * jnp.ones((d, 1), jnp.int32),
-            )
-            (spins_slot2, e_sw, m_sw, sid2, ea2, ec2, rt2, ts2, par2) = out
-
-            # back to by-system storage: system sid2[s] owns slot s's spins
-            inv = (
-                jnp.zeros((d, n_slots), jnp.int32)
-                .at[jnp.arange(d)[:, None], sid2]
-                .set(jnp.broadcast_to(jnp.arange(n_slots), (d, n_slots)))
-            )
-            spins_sys = jnp.take_along_axis(
-                spins_slot2.reshape(d, n_slots, h * w), inv[..., None], axis=1
-            )
-
-            # vectorized per-sweep records (slot == temperature, R == 1)
-            gate = ((xs_blk >= 0) & (xs_blk >= state["warmup"])).astype(
-                jnp.float32
-            )  # [n_inner]
-            m_rt = m_sw.astype(jnp.float32) / rt.n_spins  # [d, N, T]
-            m2 = m_rt * m_rt
-            e_rt = e_sw
-            rec = jnp.zeros((d, n_inner, N_REC, rt.n_temps), jnp.float32)
-            rec = rec.at[:, :, REC["m_sum"]].set(m_rt)
-            rec = rec.at[:, :, REC["m2_sum"]].set(m2)
-            rec = rec.at[:, :, REC["m4_sum"]].set(m2 * m2)
-            rec = rec.at[:, :, REC["e_sum"]].set(e_rt)
-            rec = rec.at[:, :, REC["e2_sum"]].set(e_rt * e_rt)
-            rec = rec.at[:, :, REC["m2_ac"]].set(m2)
-            rec = rec.at[:, :, REC["diag_e"]].set(e_rt)
-
-            acc = dict(acc)
-            acc["rec_sums"], acc["rec_comp"] = _kahan_add(
-                acc["rec_sums"], acc["rec_comp"],
-                (rec * gate[None, :, None, None]).sum(1),
-            )
-            acc["n_recorded"] = acc["n_recorded"] + gate.sum().astype(jnp.int32)
-
-            series = None
-            if self.need_series_vals:
-                # UNGATED values: the equilibration diagnostic consumes every
-                # sweep including warmup (mod.rs:511,531); the warmup gate
-                # applies only to the autocorrelation ring.  Sentinel sweeps
-                # are zero (the kernel zeroes their outputs) and masked by
-                # their -1 indices / sliced off host-side.
-                svals = jnp.stack(
-                    [
-                        rec[:, :, REC["m2_ac"]],
-                        rec[:, :, REC["q2_ac"]],
-                        rec[:, :, REC["diag_e"]],
-                        rec[:, :, REC["diag_ql"]],
-                    ],
-                    axis=2,
-                ).swapaxes(0, 1)  # [n_inner, d, N_SERIES, T]
-                acc = self.ac_equil_block(acc, svals, xs_blk, state["warmup"])
-                if self.emit_series:
-                    series = svals
-
-            new_state = dict(state)
-            new_state["spins"] = spins_sys
-            new_state["system_ids"] = sid2.reshape(state["system_ids"].shape)
-            new_state["counter"] = counter + n_active
-            new_state["pt_edge_attempts"] = ea2[:, : rt.n_temps - 1] if rt.n_temps > 1 else state["pt_edge_attempts"]
-            new_state["pt_edge_acceptances"] = ec2[:, : rt.n_temps - 1] if rt.n_temps > 1 else state["pt_edge_acceptances"]
-            new_state["pt_round_trips"] = rt2
-            new_state["pt_trip_state"] = ts2
-            new_state["pt_parity"] = par2[0, 0]
-            return (new_state, acc), series
-
-        @functools.partial(jax.jit, donate_argnums=(0,))
-        def run(carry, xs):
-            xs_blocks = xs.reshape(n_calls, n_inner)
-            (state, acc), series = jax.lax.scan(call_body, carry, xs_blocks)
-            if series is not None:
-                series = series.reshape(
-                    (chunk_len,) + series.shape[2:]
-                )
-            return (state, acc), series
-
-        return run
-
-    # --------------------------------------------------- megapair runner
-
-    def _mp_inner_cap(self) -> int:
-        """Max inner sweeps per megapair kernel call within the SMEM budget.
-
-        Per-sweep outputs (e, m, qs, ql) and the seed/PT words are SMEM
-        operands blocked per grid instance (singleton-middle-axis blocks),
-        so the budget covers ONE realization's ``[n_inner, ...]`` slab —
-        the disorder count no longer throttles n_inner.
-        """
-        rt = self.rt
-        pad = lambda n: -(-max(n, 1) // 128) * 128  # SMEM trailing-dim pad
-        per_inner = 4 * (
-            2 * pad(rt.n_systems)
-            + 2 * pad((rt.n_replicas // 2) * rt.n_temps)
-            + 8
-        )
-        return max(1, 500_000 // per_inner)
-
-    def _overlap_branch_slots(self, mode):
-        """Overlap-move event on slot-ordered spins (disorder-batched).
-
-        Megapair counterpart of :meth:`_overlap_branch`: tasks are built in
-        slot space — a task group at temperature t is a shuffled subset of
-        the replicas at slot column t (the reference shuffles the systems at
-        each temperature, overlap.rs:35-56; replica slots at a temperature
-        ARE those systems) — so no by-system gather/scatter is needed.  The
-        CC fixed points run batched via :meth:`_run_tasks_batched`.
-        """
-        rt = self.rt
-        g = mode.group_size
-        n_groups = rt.n_replicas // g
-        R, T, n = rt.n_replicas, rt.n_temps, rt.n_spins
-
-        def branch(slot_flat, keys):
-            # slot_flat: int8 [d, R, T, n_spins]
-            d = slot_flat.shape[0]
-
-            def tasks_d(key_d):
-                k_shuffle, k_tasks = jax.random.split(
-                    jax.random.fold_in(key_d, _PH_OVERLAP)
-                )
-                keys_t = jax.random.split(k_shuffle, T)
-                perm = jax.vmap(
-                    lambda k: jax.random.permutation(k, R)
-                )(keys_t)  # [T, R]
-                tasks = perm[:, : n_groups * g].reshape(T, n_groups, g)
-                tkeys = jax.random.split(k_tasks, T * n_groups)
-                return tasks, tkeys
-
-            tasks, tkeys = jax.vmap(tasks_d)(keys)
-            t_idx = jnp.arange(T)[:, None, None]
-            tspins = jax.vmap(lambda sf, tk: sf[tk, t_idx])(slot_flat, tasks)
-            out = self._run_tasks_batched(
-                mode, tspins.reshape(d, T * n_groups, g, n), tkeys, False
-            )
-            new_sf = jax.vmap(
-                lambda sf, tk, o: sf.at[tk, t_idx].set(
-                    o.reshape(T, n_groups, g, n)
-                )
-            )(slot_flat, tasks, out.spins)
-            csd_t, top4_frac, obs_delta = jax.vmap(
-                lambda o: self._task_stats(o, n_groups)
-            )(out)
-            return new_sf, csd_t, top4_frac, obs_delta
-
-        return branch
-
-    def _megapair_chunk_runner(self, chunk_len: int):
-        """Chunk runner on the pairs-megakernel path.
-
-        Block structure (one block per overlap interval I; reference sweep
-        order mod.rs:405-796 is sweep -> measure -> overlap -> PT, with the
-        overlap event firing when ``sweep % I == 0``):
-
-            kernel call A (1 sweep: sweep + pair measurement, NO PT)
-            -> overlap move in jnp (the event sweep's move)
-            -> PT in jnp via the kernel-draw mirror (pt_event_jnp)
-            -> kernel call B (I-1 sweeps: sweep + measurement + in-kernel PT)
-
-        Without an overlap config, one call of min(chunk, 256) sweeps runs
-        everything in-kernel (like the 2D megakernel, plus pairs).  The jnp
-        PT mirror draws the *same* murmur-mixed uniforms as the kernel, so
-        observe-mode runs stay bitwise identical to overlap-free runs.
-        """
-        import math as _math
-        import os
-
-        rt = self.rt
-        cfg = self.cfg
-        h = cfg.overlap_cluster
-        kp, rp = self._mp
-        shape = tuple(rt.lattice.shape)
-        l0 = shape[0]
-        block = int(np.prod(shape[1:]))
-        d = rt.n_disorder
-        R, T = rt.n_replicas, rt.n_temps
-        n_slots = R * T
-        n_pairs = R // 2
-        n_spins = rt.n_spins
-        n_bonds = n_spins * rt.lattice.n_neighbors
-        gibbs = cfg.sweep_mode == "gibbs"
-        interpret = os.environ.get("PEAPODS_PALLAS_INTERPRET") == "1"
-        pt_on = cfg.pt_interval is not None and T >= 2
-        pt_full = cfg.pt_schedule == "full_ladder"
-
-        if h is not None:
-            n_inner = h.interval
-        else:
-            n_inner = min(chunk_len, 256, max(1, self._mp_inner_cap()))
-            while chunk_len % n_inner:
-                n_inner -= 1
-        assert chunk_len % n_inner == 0, (chunk_len, n_inner)
-        n_blocks = chunk_len // n_inner
-
-        if self._mp_jgrids is None:
-            self._mp_jgrids = jax.vmap(
-                lambda c: pallas_megapair.pack_coupling_grids_mp(
-                    c, shape, kp, rp
-                )
-            )(rt.couplings)
-        jg = self._mp_jgrids
-
-        mode_kinds = (
-            np.array([OBS_KINDS.index(m.kind) for m in h.modes], np.int32)
-            if h
-            else None
-        )
-        # In-kernel overlap event (self.mp_event): the whole block — event
-        # sweep, pair move, PT, remaining sweeps — becomes ONE pallas_call
-        # (no tiles<->slots repacking, no jnp PT mirror, no jnp energy
-        # re-derivation).  PEAPODS_MP_EVENT=0 reverts to the interleaved
-        # path.
-        fuse_evt = self.mp_event
-        ev_kinds = tuple(m.kind for m in h.modes) if fuse_evt else None
-        ev_wolff = h.cluster_mode == "wolff" if fuse_evt else False
-        ev_probes_on = fuse_evt and ev_wolff and any(
-            k in ("houdayer", "jorg") for k in ev_kinds
-        )
-        slot_branches = [
-            self._overlap_branch_slots(m)
-            for m in (h.modes if h and not fuse_evt else [])
-        ]
-
-        def words(keys, ctr, phase, n):
-            """int32 [d, 2*n] per-(realization, inner-sweep) key words."""
-
-            def per_key(key):
-                def per_t(t):
-                    k = jax.random.fold_in(
-                        jax.random.fold_in(key, ctr + t), phase
-                    )
-                    return jax.lax.bitcast_convert_type(
-                        jax.random.key_data(k).astype(jnp.uint32), jnp.int32
-                    )
-
-                return jax.vmap(per_t)(jnp.arange(n, dtype=jnp.int32))
-
-            return jax.vmap(per_key)(keys).reshape(d, 2 * n)
-
-        def make_call(n_in, with_pt, with_event=False):
-            call = functools.partial(
-                pallas_megapair.megapair_chunk,
-                shape=shape,
-                gibbs=gibbs,
-                n_inner=n_in,
-                n_temps=T,
-                n_replicas=R,
-                kp=kp,
-                rp=rp,
-                pt_interval=cfg.pt_interval if (with_pt and pt_on) else None,
-                pt_full=pt_full,
-                hot_slot=rt.hot_slot,
-                cold_slot=rt.cold_slot,
-                interpret=interpret,
-                ev_kinds=ev_kinds if with_event else None,
-                ev_wolff=ev_wolff if with_event else False,
-            )
-            if rt.mesh is not None and rt.mesh.devices.size > 1:
-                from jax.sharding import PartitionSpec as P
-
-                dspec = P("disorder")
-                # engine always passes (mode, perm, iperm, scal, words);
-                # probes + rank tiles ride only Wolff houdayer/jorg kinds
-                n_ev = (5 + (2 if ev_probes_on else 0)) if with_event else 0
-                call = jax.shard_map(
-                    call,
-                    mesh=rt.mesh,
-                    in_specs=(dspec, dspec, P(), dspec, dspec, dspec, dspec,
-                              dspec, dspec, dspec, dspec, dspec)
-                    + (dspec,) * n_ev,
-                    out_specs=(dspec,) * 11,
-                    check_vma=False,
-                )
-            return call
-
-        call_a = make_call(1, False) if (h is not None and not fuse_evt) else None
-        call_b = (
-            make_call(n_inner - 1, True)
-            if (h is not None and not fuse_evt and n_inner > 1)
-            else None
-        )
-        call_full = make_call(n_inner, True) if h is None else None
-        call_evt = make_call(n_inner, True, True) if fuse_evt else None
-
-        def apply_records(acc, e_sw, m_sw, qs_sw, ql_sw, gate_f, gate_i,
-                          xs_part, warm):
-            """Fold one kernel call's per-sweep outputs into the
-            accumulators; returns (acc, series [n, d, N_SERIES, T])."""
-            n = e_sw.shape[1]
-            e_rt = e_sw.reshape(d, n, R, T)
-            m_rt = m_sw.astype(jnp.float32).reshape(d, n, R, T) / n_spins
-            m2 = m_rt * m_rt
-            rec = jnp.zeros((d, n, N_REC, T), jnp.float32)
-            rec = rec.at[:, :, REC["m_sum"]].set(m_rt.sum(2))
-            rec = rec.at[:, :, REC["m2_sum"]].set(m2.sum(2))
-            rec = rec.at[:, :, REC["m4_sum"]].set((m2 * m2).sum(2))
-            rec = rec.at[:, :, REC["e_sum"]].set(e_rt.sum(2))
-            rec = rec.at[:, :, REC["e2_sum"]].set((e_rt * e_rt).sum(2))
-            rec = rec.at[:, :, REC["m2_ac"]].set(m2.sum(2) / R)
-            rec = rec.at[:, :, REC["diag_e"]].set(e_rt.sum(2) / R)
-            q = qs_sw.astype(jnp.float32).reshape(d, n, n_pairs, T) / n_spins
-            ql = ql_sw.astype(jnp.float32).reshape(d, n, n_pairs, T) / n_bonds
-            q2 = q * q
-            ql2 = ql * ql
-            rec = rec.at[:, :, REC["q_sum"]].set(q.sum(2))
-            rec = rec.at[:, :, REC["q2_sum"]].set(q2.sum(2))
-            rec = rec.at[:, :, REC["q4_sum"]].set((q2 * q2).sum(2))
-            rec = rec.at[:, :, REC["ql_sum"]].set(ql.sum(2))
-            rec = rec.at[:, :, REC["ql2_sum"]].set(ql2.sum(2))
-            rec = rec.at[:, :, REC["ql4_sum"]].set((ql2 * ql2).sum(2))
-            rec = rec.at[:, :, REC["q2_ac"]].set(q2.sum(2) / n_pairs)
-            rec = rec.at[:, :, REC["diag_ql"]].set(ql.sum(2) / n_pairs)
-
-            acc = dict(acc)
-            acc["rec_sums"], acc["rec_comp"] = _kahan_add(
-                acc["rec_sums"], acc["rec_comp"],
-                (rec * gate_f[None, :, None, None]).sum(1),
-            )
-            acc["n_recorded"] = acc["n_recorded"] + gate_i.sum()
-
-            # P(q) histogram + conditional sums (overlap.rs:303, lib.rs)
-            idx = (qs_sw.reshape(d, n, n_pairs, T) + n_spins) // 2
-            t_cols = jnp.broadcast_to(
-                jnp.arange(T)[None, None, :], (n, n_pairs, T)
-            )
-            gi = jnp.broadcast_to(gate_i[:, None, None], (n, n_pairs, T))
-            gf = gate_f[:, None, None]
-
-            def upd(qh, qla, qla2, ix, qlv):
-                qh = qh.at[t_cols, ix].add(gi)
-                qla = qla.at[t_cols, ix].add(gf * qlv)
-                qla2 = qla2.at[t_cols, ix].add(gf * qlv * qlv)
-                return qh, qla, qla2
-
-            acc["q_hist"], acc["ql_at_q"], acc["ql2_at_q"] = jax.vmap(upd)(
-                acc["q_hist"], acc["ql_at_q"], acc["ql2_at_q"], idx, ql
-            )
-
-            series = None
-            if self.need_series_vals:
-                svals = jnp.stack(
-                    [
-                        rec[:, :, REC["m2_ac"]],
-                        rec[:, :, REC["q2_ac"]],
-                        rec[:, :, REC["diag_e"]],
-                        rec[:, :, REC["diag_ql"]],
-                    ],
-                    axis=2,
-                ).swapaxes(0, 1)  # [n, d, N_SERIES, T]
-                acc = self.ac_equil_block(acc, svals, xs_part, warm)
-                if self.emit_series:
-                    series = svals
-            return acc, series
-
-        def call_body(carry, xs_blk):
-            # tiles ride the scan carry: by-system spins are packed once per
-            # chunk (in `run`), not gathered/scattered per block
-            state, acc, tiles = carry
-            ctr = state["counter"]
-            warm = state["warmup"]
-            sid_rt = state["system_ids"]  # [d, R, T]
-            sid_flat = sid_rt.reshape(d, n_slots)
-            ea = (
-                state["pt_edge_attempts"]
-                if T > 1
-                else jnp.zeros((d, 1), jnp.int32)
-            )
-            ec = (
-                state["pt_edge_acceptances"]
-                if T > 1
-                else jnp.zeros((d, 1), jnp.int32)
-            )
-            rtr = state["pt_round_trips"]
-            ts = state["pt_trip_state"]
-            par = state["pt_parity"][None, None] * jnp.ones((d, 1), jnp.int32)
-            total_active = (xs_blk >= 0).sum().astype(jnp.int32)
-            x0 = xs_blk[0]
-            series_parts = []
-
-            if fuse_evt:
-                # --- one kernel call per block: sweep 0 -> in-kernel
-                # overlap event -> PT -> remaining sweeps (reference order
-                # mod.rs:405-796).  Pairing permutation, task scalars, and
-                # find_seed probes are drawn here bitwise like the
-                # interleaved path (_overlap_branch_slots); the kernel
-                # canonicalizes regions and applies only the selected
-                # mode's flips.
-                seeds = words(state["base_keys"], ctr, _PH_SWEEP, n_inner)
-                ptw = words(state["base_keys"], ctr, _PH_PT, n_inner)
-                eww = words(state["base_keys"], ctr, _PH_EVT, 1)
-                keys_evt = jax.vmap(
-                    lambda k: jax.random.fold_in(k, ctr)
-                )(state["base_keys"])
-                mode_idx = (
-                    (jnp.maximum(x0, 0) // h.interval) % self.n_modes
-                ).astype(jnp.int32)
-                n_groups_ov = R // 2
-
-                def draws_d(key_d):
-                    k_shuffle, k_tasks = jax.random.split(
-                        jax.random.fold_in(key_d, _PH_OVERLAP)
-                    )
-                    keys_t = jax.random.split(k_shuffle, T)
-                    perm_d = jax.vmap(
-                        lambda k: jax.random.permutation(k, R)
-                    )(keys_t)  # [T, R]
-                    tkeys_d = jax.random.split(k_tasks, T * n_groups_ov)
-                    return perm_d, tkeys_d
-
-                perm, tkeys = jax.vmap(draws_d)(keys_evt)
-                iperm = jnp.argsort(perm, axis=-1)
-
-                def scal_branch(kind):
-                    def f(tk):
-                        return jax.vmap(
-                            lambda tkd: pallas_event.mp_event_scalars(
-                                kind, ev_wolff, tkd, n_spins
-                            )
-                        )(tk)
-
-                    return f
-
-                branches_sc = [scal_branch(m.kind) for m in h.modes]
-                if self.n_modes == 1:
-                    scal, probes = branches_sc[0](tkeys)
-                else:
-                    scal, probes = jax.lax.switch(
-                        mode_idx, branches_sc, tkeys
-                    )
-                ev_extra = []
-                if ev_probes_on:
-                    ev_extra = [
-                        probes.reshape(d, T * n_groups_ov * 64),
-                        pallas_event.mp_event_rank_tiles(
-                            probes, R, T, shape, kp, rp
-                        ),
-                    ]
-                meta = jnp.broadcast_to(
-                    jnp.stack([jnp.maximum(x0, 0), total_active])[None, :],
-                    (d, 2),
-                )
-                out = call_evt(
-                    tiles, jg, rt.temps[None, :], seeds, ptw, meta,
-                    sid_flat, ea, ec, rtr, ts, par,
-                    jnp.broadcast_to(
-                        mode_idx[None, None], (d, 1)
-                    ).astype(jnp.int32),
-                    perm.reshape(d, T * R).astype(jnp.int32),
-                    iperm.reshape(d, T * R).astype(jnp.int32),
-                    scal.reshape(d, T * n_groups_ov * 6),
-                    eww,
-                    *ev_extra,
-                )
-                (tiles, e_f, m_f, qs_f, ql_f,
-                 sid_flat, ea, ec, rtr, ts, par) = out
-                gate_f = ((xs_blk >= 0) & (xs_blk >= warm)).astype(
-                    jnp.float32
-                )
-                acc, ser = apply_records(
-                    acc, e_f, m_f, qs_f, ql_f, gate_f,
-                    gate_f.astype(jnp.int32), xs_blk, warm,
-                )
-                if ser is not None:
-                    series_parts.append(ser)
-            elif h is not None:
-                # --- call A: the event sweep (sweep + measure, no PT)
-                seeds_a = words(state["base_keys"], ctr, _PH_SWEEP, 1)
-                ptw_a = words(state["base_keys"], ctr, _PH_PT, 1)
-                meta = jnp.broadcast_to(
-                    jnp.stack(
-                        [jnp.maximum(x0, 0),
-                         jnp.minimum(total_active, 1)]
-                    )[None, :],
-                    (d, 2),
-                )
-                out = call_a(
-                    tiles, jg, rt.temps[None, :], seeds_a, ptw_a, meta,
-                    sid_flat, ea, ec, rtr, ts, par,
-                )
-                (tiles, e_a, m_a, qs_a, ql_a,
-                 sid_flat, ea, ec, rtr, ts, par) = out
-                gate_f0 = ((x0 >= 0) & (x0 >= warm)).astype(jnp.float32)[
-                    None
-                ]
-                gate_i0 = gate_f0.astype(jnp.int32)
-                acc, ser = apply_records(
-                    acc, e_a, m_a, qs_a, ql_a, gate_f0, gate_i0,
-                    xs_blk[:1], warm,
-                )
-                if ser is not None:
-                    series_parts.append(ser)
-
-                # --- overlap move (jnp), gated on the block being active
-                slot_flat = pallas_megapair.tiles_to_slots(
-                    tiles, l0, block, kp, rp
-                )
-                mode_idx = (jnp.maximum(x0, 0) // h.interval) % self.n_modes
-                keys_evt = jax.vmap(
-                    lambda k: jax.random.fold_in(k, ctr)
-                )(state["base_keys"])
-                rec_i_evt = gate_i0[0]
-                rec_f_evt = gate_f0[0]
-
-                def run_event(args):
-                    slot_flat, acc = args
-
-                    new_sf, csd_t, top4_frac, obs_delta = jax.lax.switch(
-                        mode_idx, slot_branches, slot_flat, keys_evt
-                    )
-                    acc = dict(acc)
-                    if self.collect_overlap:
-                        acc["overlap_csd"] = (
-                            acc["overlap_csd"]
-                            .at[:, mode_idx]
-                            .add(rec_i_evt * csd_t)
-                        )
-                        acc["top4_sum"] = (
-                            acc["top4_sum"]
-                            .at[:, mode_idx]
-                            .add(rec_f_evt * top4_frac)
-                        )
-                        acc["top4_n"] = (
-                            acc["top4_n"].at[:, mode_idx].add(rec_i_evt)
-                        )
-                    if self.observe_overlap:
-                        active_kind = jnp.asarray(mode_kinds)[mode_idx]
-                        for kind in self.obs_kinds_used:
-                            gate = rec_i_evt * (
-                                active_kind == OBS_KINDS.index(kind)
-                            ).astype(jnp.int32)
-                            acc[f"ov_obs_{kind}"] = jax.vmap(
-                                lambda a, dl: _obs_add(a, dl, gate)
-                            )(acc[f"ov_obs_{kind}"], obs_delta)
-                    return new_sf, acc
-
-                slot_flat, acc = jax.lax.cond(
-                    x0 >= 0, run_event, lambda a: a, (slot_flat, acc)
-                )
-
-                # --- PT for the event sweep (jnp mirror of the kernel)
-                if pt_on:
-                    do_pt = (x0 >= 0) & (
-                        jax.lax.rem(x0, jnp.int32(cfg.pt_interval)) == 0
-                    )
-                    es_kernel = e_a[:, 0, :].reshape(d, R, T)
-                    if h.action == "update":
-                        # the move mutated spins this sweep: re-derive
-                        # (mod.rs:748-754)
-                        es_use = jax.vmap(
-                            lambda sf, cp: compute_energies(
-                                sf.reshape(n_slots, n_spins), cp, rt.geom
-                            ).reshape(R, T)
-                        )(slot_flat, rt.couplings)
-                    else:
-                        es_use = es_kernel
-                    ptw0 = ptw_a  # [d, 2] — the event sweep's PT words
-
-                    def run_pt(args):
-                        slot_flat, sid_rt2, ea, ec, rtr, ts, par = args
-
-                        def one(sf, es, si, w, e_a_, e_c_, r_, t_, p_):
-                            (sf2, _es2, si2, ea2, ec2, rt2, ts2,
-                             par2) = pallas_megapair.pt_event_jnp(
-                                sf, es, si, rt.temps, w[0], w[1],
-                                e_a_, e_c_, r_, t_, p_[0],
-                                n_spins=n_spins, pt_full=pt_full,
-                                hot_slot=rt.hot_slot,
-                                cold_slot=rt.cold_slot,
-                            )
-                            return (sf2, si2, ea2, ec2, rt2, ts2,
-                                    jnp.asarray(par2)[None])
-
-                        return jax.vmap(one)(
-                            slot_flat, es_use, sid_rt2, ptw0, ea, ec, rtr,
-                            ts, par,
-                        )
-
-                    (slot_flat, sid_rt2, ea, ec, rtr, ts, par) = jax.lax.cond(
-                        do_pt,
-                        run_pt,
-                        lambda a: a,
-                        (slot_flat, sid_flat.reshape(d, R, T), ea, ec, rtr,
-                         ts, par),
-                    )
-                    sid_flat = sid_rt2.reshape(d, n_slots)
-
-                tiles = pallas_megapair.slots_to_tiles(
-                    slot_flat, l0, block, kp, rp
-                )
-
-                # --- call B: the remaining I-1 sweeps, PT in-kernel
-                if call_b is not None:
-                    seeds_b = words(
-                        state["base_keys"], ctr + 1, _PH_SWEEP, n_inner - 1
-                    )
-                    ptw_b = words(
-                        state["base_keys"], ctr + 1, _PH_PT, n_inner - 1
-                    )
-                    meta = jnp.broadcast_to(
-                        jnp.stack(
-                            [jnp.maximum(x0, 0) + 1,
-                             jnp.maximum(total_active - 1, 0)]
-                        )[None, :],
-                        (d, 2),
-                    )
-                    out = call_b(
-                        tiles, jg, rt.temps[None, :], seeds_b, ptw_b, meta,
-                        sid_flat, ea, ec, rtr, ts, par,
-                    )
-                    (tiles, e_b, m_b, qs_b, ql_b,
-                     sid_flat, ea, ec, rtr, ts, par) = out
-                    xs_rest = xs_blk[1:]
-                    gate_fb = ((xs_rest >= 0) & (xs_rest >= warm)).astype(
-                        jnp.float32
-                    )
-                    acc, ser = apply_records(
-                        acc, e_b, m_b, qs_b, ql_b, gate_fb,
-                        gate_fb.astype(jnp.int32), xs_blk[1:], warm,
-                    )
-                    if ser is not None:
-                        series_parts.append(ser)
-            else:
-                seeds = words(state["base_keys"], ctr, _PH_SWEEP, n_inner)
-                ptw = words(state["base_keys"], ctr, _PH_PT, n_inner)
-                meta = jnp.broadcast_to(
-                    jnp.stack([jnp.maximum(x0, 0), total_active])[None, :],
-                    (d, 2),
-                )
-                out = call_full(
-                    tiles, jg, rt.temps[None, :], seeds, ptw, meta,
-                    sid_flat, ea, ec, rtr, ts, par,
-                )
-                (tiles, e_f, m_f, qs_f, ql_f,
-                 sid_flat, ea, ec, rtr, ts, par) = out
-                gate_f = ((xs_blk >= 0) & (xs_blk >= warm)).astype(
-                    jnp.float32
-                )
-                acc, ser = apply_records(
-                    acc, e_f, m_f, qs_f, ql_f, gate_f,
-                    gate_f.astype(jnp.int32), xs_blk, warm,
-                )
-                if ser is not None:
-                    series_parts.append(ser)
-
-            sid_rt = sid_flat.reshape(d, R, T)
-            new_state = dict(state)
-            new_state["system_ids"] = sid_rt
-            new_state["counter"] = ctr + total_active
-            if T > 1:
-                new_state["pt_edge_attempts"] = ea
-                new_state["pt_edge_acceptances"] = ec
-            new_state["pt_round_trips"] = rtr
-            new_state["pt_trip_state"] = ts
-            new_state["pt_parity"] = par[0, 0]
-            series = (
-                jnp.concatenate(series_parts, axis=0)
-                if series_parts
-                else None
-            )
-            return (new_state, acc, tiles), series
-
-        @functools.partial(jax.jit, donate_argnums=(0,))
-        def run(carry, xs):
-            state, acc = carry
-            # pack by-system spins into slot tiles ONCE per chunk; blocks
-            # carry the tiles and only update sid bookkeeping
-            tiles = pallas_megapair.pack_slots(
-                state["spins"], state["system_ids"], l0, block, kp, rp
-            )
-            inner = dict(state)
-            inner.pop("spins")
-            xs_blocks = xs.reshape(n_blocks, n_inner)
-            (inner, acc, tiles), series = jax.lax.scan(
-                call_body, (inner, acc, tiles), xs_blocks
-            )
-            state = dict(inner)
-            state["spins"] = pallas_megapair.unpack_slots(
-                tiles, inner["system_ids"], l0, block, kp, rp
-            )
-            if series is not None:
-                series = series.reshape((chunk_len,) + series.shape[2:])
-            return (state, self.fold_float_hists(acc)), series
-
-        return run
-
-    def align_chunk(self, chunk: int) -> int:
-        """Round the driver's chunk length down to a whole number of
-        overlap-interval blocks (megapair blocks must start on event
-        sweeps); identity on every other path."""
-        if self.megapair and self.cfg.overlap_cluster is not None:
-            i = self.cfg.overlap_cluster.interval
-            return max(i, chunk - chunk % i)
-        return chunk
-
     def chunk_runner(self, chunk_len: int):
         """Jitted scan over ``chunk_len`` sweeps (cached per length)."""
-        if self.mega:
-            if chunk_len not in self._chunk_cache:
-                self._chunk_cache[chunk_len] = self._mega_chunk_runner(chunk_len)
-            return self._chunk_cache[chunk_len]
-        if self.megapair:
-            if chunk_len not in self._chunk_cache:
-                self._chunk_cache[chunk_len] = self._megapair_chunk_runner(
-                    chunk_len
-                )
-            return self._chunk_cache[chunk_len]
         if chunk_len not in self._chunk_cache:
             step = self.make_step(with_snapshot=False)
 

@@ -51,7 +51,7 @@ def _defer_sigint():
     dispatch; a KeyboardInterrupt raised inside the dispatch call would lose
     the output and leave the simulation pointing at deleted arrays.  SIGINT
     is parked until ``self.state`` has been re-pointed at the output, then
-    re-raised — the TPU analog of the reference's per-sweep AtomicBool poll
+    re-raised — the chunk-level analog of the reference's per-sweep AtomicBool poll
     (src/lib.rs:304-333): interrupts land at chunk granularity with the
     object consistent.
     """
@@ -155,9 +155,6 @@ class IsingSimulation:
         self._programs = {}
         self.state = None
         if self.mesh is not None:
-            # Pallas sweep calls shard_map over the mesh (engine/loop.py
-            # _sweep_phase_pallas), so multi-device meshes keep the fast
-            # kernel path at full per-chip speed.
             shard_runtime(self.rt, self.mesh)
         self._init_state(self.constructor_seed)
 
@@ -370,8 +367,7 @@ class IsingSimulation:
 
         # Everything accumulates on device; the python loop below dispatches
         # chunks asynchronously and only synchronizes once at the end (plus
-        # snapshot payload pulls) — host round-trips are expensive on a
-        # remote-attached chip.
+        # snapshot payload pulls) — every host round-trip stalls the device.
         #
         # Interrupt contract (reference src/lib.rs:304-333 polls an AtomicBool
         # per sweep and surfaces KeyboardInterrupt with the object usable):
@@ -391,8 +387,6 @@ class IsingSimulation:
         # with sweep_local = -1 sentinels that the step cond-skips.
         chunk = min(self.default_chunk, 1 << max(0, (n_sweeps - 1)).bit_length())
         chunk = max(chunk, 1)
-        # megapair blocks must start on overlap-event sweeps
-        chunk = program.align_chunk(chunk)
         while s < n_sweeps:
             if snap_i < len(snap_sweeps) and s == snap_sweeps[snap_i]:
                 run1 = program.snapshot_runner()

@@ -205,7 +205,7 @@ class Ising:
         houdayer/houdN/jorg/cmr (houdN with N > 2 is experimental and very
         likely violates detailed balance).  ``warmup_ratio`` of the sweeps
         is discarded before recording; ``sequential`` is accepted for API
-        compatibility (the TPU engine always fuses the inner parallelism).
+        compatibility (the engine always fuses the inner parallelism).
 
         Returns the raw results dictionary (keys like ``"mags"``,
         ``"energies"``, ``"overlap2"``, ``"per_disorder"``, ...).

@@ -1,6 +1,6 @@
 """Cluster machinery: bond activation, connected components, flips, graph stats.
 
-TPU-native counterpart of the reference union-find / DFS cluster layer
+Data-parallel counterpart of the reference union-find / DFS cluster layer
 (``/root/reference/spin-sim/src/clusters/utils.rs`` and ``clusters/fk.rs``).
 
 Design (SURVEY.md section 7): the sequential union-find becomes a fixed-point
@@ -12,8 +12,7 @@ inside a ``lax.while_loop`` until convergence (check amortized over blocks of
 rounds).  Labels converge to the minimum site index of each component, so
 every site of a component carries the same id (the role of the reference's
 flattened union-find parent array).  Neighbor access is roll-based
-(:mod:`peapods_tpu.ops.geometry`); the TPU hot path contains no per-site
-gathers at all — pointer jumping is used only on CPU where gathers are cheap.
+(:mod:`peapods_tpu.ops.geometry`).
 
 Cluster-level randomness (SW coin flips, CMR's k in {0..3}) comes from
 hashing the cluster label with a per-call salt (:func:`cluster_uniform`):
@@ -44,9 +43,7 @@ __all__ = [
     "csd_histogram",
     "top4_sizes",
     "find_seed",
-    "coin_salt",
     "cluster_uniform",
-    "salted_uniform",
     "cluster_coin_flip_mask",
     "nonsingleton_mask",
     "wolff_flip_mask",
@@ -57,11 +54,6 @@ __all__ = [
 ]
 
 _NO_WINDING = (jnp.array(False), jnp.array(False))
-
-# Pointer jumping (label <- label[label]) is deliberately NOT used on TPU:
-# in-loop dynamic gathers measure ~0.7 ms each at [64, 1024], three orders
-# of magnitude more than the propagation work they would save.  Long-range
-# movement comes from segmented axis scans instead (_axis_scan_accel).
 
 
 def _seg_cummin(vals, flags, axis):
@@ -118,8 +110,8 @@ def connected_components(active_fwd, geom):
     check runs once per 16-round block so its scalar reduction does not
     serialize the pipeline.  Converges in O(component diameter) rounds.
     ``PEAPODS_CC_SCAN=1`` swaps the block for a segmented-min-scan body
-    (:func:`_axis_scan_accel`) — correct (union-find-oracle-tested) but
-    measured slower in the engine; see the in-function comment.
+    (:func:`_axis_scan_accel`) — correct (union-find-oracle-tested), kept
+    for comparison; see the in-function comment.
 
     Every step is monotone non-increasing and only moves labels across
     genuine bonds, so the unique fixed point (stable under the plain round
@@ -138,15 +130,10 @@ def connected_components(active_fwd, geom):
 
     n_spins = geom.n_spins
     big = jnp.int32(n_spins)
-    # Pointer jumping only off-TPU: CPU gathers are cheap and halve the
-    # round count, keeping the (CPU) test suite fast.
-    use_jump = jax.default_backend() == "cpu"
     # Segmented axis scans (opt-in, PEAPODS_CC_SCAN=1): validated against a
-    # union-find oracle, but an in-process A/B on the driver configs showed
-    # the associative_scan lowering (lane-axis odd/even splits + flips)
-    # costs more than the propagation rounds it saves — triangular Wolff
-    # 0.33 -> 0.78 ms/sweep, 8^3 Houdayer 0.89 -> 1.03, 16^3 Jorg+CMR
-    # 5.3 -> 6.2.  Plain 16-round blocks remain the default.
+    # union-find oracle; the associative_scan lowering (odd/even splits +
+    # flips) costs more work per round than a plain block, so plain
+    # 16-round blocks are the default.
     use_scans = os.environ.get("PEAPODS_CC_SCAN") == "1"
     # active_bwd[i, d]: the bond arriving at i from its backward neighbor.
     active_bwd = [geom.shift_bwd(active_fwd[:, d], d) for d in range(geom.n_neighbors)]
@@ -158,11 +145,9 @@ def connected_components(active_fwd, geom):
             lf = jnp.where(active_fwd[:, d], geom.shift_fwd(labels, d), big)
             lb = jnp.where(active_bwd[d], geom.shift_bwd(labels, d), big)
             new = jnp.minimum(new, jnp.minimum(lf, lb))
-        if use_jump:
-            # label values are site indices with label[j] <= j: jumping
-            # stays within the component and halves chain depths.
-            new = new[new]
-        return new
+        # Pointer jump: label values are site indices with label[j] <= j,
+        # so jumping stays within the component and halves chain depths.
+        return new[new]
 
     def cond(carry):
         _, changed = carry
@@ -192,8 +177,7 @@ def banded_supports(geom) -> bool:
 
 
 def connected_components_banded(active_fwd, geom, *, axis="space",
-                                sync_axes=None, pallas=False,
-                                interpret=False, log_cc=0):
+                                sync_axes=None):
     """Exact CC labels on a lattice band-sharded along dim 0 (SPMD body —
     call under ``jax.shard_map`` with dim 0 split over mesh axis ``axis``).
 
@@ -233,17 +217,6 @@ def connected_components_banded(active_fwd, geom, *, axis="space",
             on the CPU backend's all-device rendezvous).  Converged rings
             just idle through the extra rounds — labels are at their fixed
             point, so nothing changes.  Defaults to ``axis``.
-        pallas: run the band-local inner fixed point as a packed-tile
-            Pallas kernel (:mod:`peapods_tpu.ops.pallas_cc_band`): the band
-            plus its two halo rows become one tile and the halo rows
-            PARTICIPATE in the in-kernel min-label loop.  Every update
-            still moves labels only along genuine bonds from values
-            bounded below by the true component minima, so the outer fixed
-            point is the same unique exact labeling — bitwise the jnp
-            body's (the inner paths differ, the converged labels cannot).
-        interpret / log_cc: kernel interpret mode and the
-            ``cc_fixed_point`` body selector (hypercubic/triangular bands
-            only; generic offsets always run the classic body).
 
     Returns:
         ``int32 [B, n_local]`` global min-site-index component labels.
@@ -322,70 +295,6 @@ def connected_components_banded(active_fwd, geom, *, axis="space",
     ).reshape((1,) + band)
     init = jnp.broadcast_to(init, (n_batch,) + band)
 
-    pallas_inner = None
-    if pallas:
-        from . import pallas_cc_band as pcb
-
-        l0e = hl + 2
-        pad_rows = (-l0e) % 8  # sublane-align the extended tiles
-        l0p = l0e + pad_rows
-        kp, ks = pcb.band_factors(geom, n_batch, l0p)
-        tile = kp * ks
-        pad_g = (-n_batch) % tile
-        offs = tuple(tuple(int(c) for c in o) for o in geom.offsets)
-        shape_ext = (l0p,) + tuple(rest)
-        flat_n = l0p * rest_n
-
-        def pad_ext(e, fill):
-            """[B, l0e, *rest] -> padded [B+pad_g, l0p, *rest]."""
-            if pad_rows:
-                e = jnp.concatenate(
-                    [e, jnp.full((n_batch, pad_rows) + tuple(rest), fill,
-                                 e.dtype)],
-                    axis=1,
-                )
-            if pad_g:
-                e = jnp.concatenate(
-                    [e, jnp.full((pad_g, l0p) + tuple(rest), fill,
-                                 e.dtype)],
-                    axis=0,
-                )
-            return e
-
-        # extended bond grids (built once; bonds are CC-constant): rows are
-        # [prev_last, band, next_first]; each halo row keeps exactly the
-        # bonds that stay inside the extended grid, so the in-tile dim-0
-        # torus wrap is always masked off
-        bonds_p = []
-        for d in range(n_nb):
-            o0 = int(geom.offsets[d][0])
-            prev_row = (
-                am_prev[..., d] if o0 >= 0
-                else jnp.zeros_like(am_prev[..., d])
-            )
-            next_row = (
-                am_next[..., d] if o0 <= 0
-                else jnp.zeros_like(am_next[..., d])
-            )
-            e = jnp.concatenate([prev_row, af[d], next_row], axis=1)
-            e = pad_ext(e, False).astype(jnp.int32).reshape(-1, flat_n)
-            bonds_p.append(
-                pcb._pack(e, l0p, rest_n, kp, ks)
-            )
-        bonds_p = jnp.stack(bonds_p, axis=1)  # [G, n_dirs, rows, lanes]
-
-        def pallas_inner(lab, hx_next, hx_prev):
-            ext = jnp.concatenate([hx_prev, lab, hx_next], axis=1)
-            ext = pad_ext(ext, big).reshape(-1, flat_n)
-            lp = pcb._pack(ext, l0p, rest_n, kp, ks)
-            out = pcb.band_cc_batch(
-                bonds_p, lp, shape_ext=shape_ext, kp=kp, ks=ks,
-                offsets=offs, big=geom.n_spins, log_cc=log_cc,
-                interpret=interpret,
-            )
-            unp = pcb._unpack(out, l0p, rest_n, kp, ks)[:n_batch]
-            return unp.reshape((n_batch, l0p) + tuple(rest))[:, 1:hl + 1]
-
     def propagate(lab, hl_next, hl_prev):
         new = lab
         for d in range(n_nb):
@@ -398,19 +307,16 @@ def connected_components_banded(active_fwd, geom, *, axis="space",
         lab, _ = carry
         hl_next, hl_prev = halos(lab)
 
-        if pallas_inner is not None:
-            new = pallas_inner(lab, hl_next, hl_prev)
-        else:
-            def inner_body(c):
-                l, _ = c
-                new = l
-                for _ in range(16):
-                    new = propagate(new, hl_next, hl_prev)
-                return new, jnp.any(new != l)
+        def inner_body(c):
+            l, _ = c
+            new = l
+            for _ in range(16):
+                new = propagate(new, hl_next, hl_prev)
+            return new, jnp.any(new != l)
 
-            new, _ = jax.lax.while_loop(
-                lambda c: c[1], inner_body, (lab, jnp.array(True))
-            )
+        new, _ = jax.lax.while_loop(
+            lambda c: c[1], inner_body, (lab, jnp.array(True))
+        )
         changed = (
             jax.lax.psum(
                 jnp.any(new != lab).astype(jnp.int32),
@@ -431,14 +337,13 @@ def _hist_matmul(values, weights, n_bins):
 
     ``out[v] = sum(weights[values == v])`` for ``v < n_bins`` — the same
     integers the scatter-add form (``zeros.at[values].add(weights)``)
-    produces, computed on the MXU instead: XLA's TPU scatter is serialized
-    (~0.6 ms per 64k updates, benchmarks/cc_contract_probe.py) and was the
-    dominant cost of cluster-statistics collection (~23 ms/event at the
-    config-5 task batch).  The value splits into ``hi = v // 128`` and
-    ``lo = v % 128``; two int8 one-hot factors contract over the update
-    axis into an exact int32 ``[hi_bins, 128]`` grid (int8 x int8 -> int32
-    rides the MXU natively), which flattens to the dense histogram.
-    Weights must be 0/1 (they fold into the int8 hi factor)."""
+    produces, as a contraction instead of a serialized scatter.  The value
+    splits into ``hi = v // 128`` and ``lo = v % 128``; two int8 one-hot
+    factors contract over the update axis into an exact int32
+    ``[hi_bins, 128]`` grid (int8 x int8 -> int32: no floating point, so no
+    reduced-precision matmul mode can touch it), which flattens to the
+    dense histogram.  Weights must be 0/1 (they fold into the int8 hi
+    factor)."""
     lo_n = 128
     hi_n = -(-n_bins // lo_n)
     v = values.astype(jnp.int32)
@@ -491,16 +396,6 @@ def find_seed(key, eligible, n_probes: int = 64):
     return probes[first], hits.any()
 
 
-def coin_salt(key):
-    """The two salt words :func:`cluster_uniform` hashes labels with.
-
-    Exposed so the fused event kernel (ops/pallas_event.py) can draw the
-    exact same salts from the task key and reproduce the staged path's
-    per-cluster coins bitwise.
-    """
-    return jax.random.randint(key, (2,), -(2**31), 2**31 - 1, dtype=jnp.int32)
-
-
 def cluster_uniform(key, labels):
     """One i.i.d. uniform per cluster, constant across the cluster's sites.
 
@@ -508,18 +403,16 @@ def cluster_uniform(key, labels):
     the cluster identity (its min-site-index label) is hashed together with a
     per-call salt — a gather-free counter-based equivalent: distinct clusters
     get independent draws, every site of a cluster sees the same draw, and
-    different calls/sweeps are decorrelated by the salt.
+    different calls/sweeps are decorrelated by the salt.  The hash is a
+    murmur3-style avalanche of (label, salt) down to a 24-bit uniform.
     """
-    return salted_uniform(labels, coin_salt(key))
-
-
-def salted_uniform(labels, salt):
-    """murmur-style avalanche hash of (label, salt) to a 24-bit uniform."""
-    x = labels.astype(jnp.uint32) ^ salt[0].astype(jnp.uint32)
-    # murmur3-style avalanche
+    salt = jax.random.randint(
+        key, (2,), -(2**31), 2**31 - 1, dtype=jnp.int32
+    ).astype(jnp.uint32)
+    x = labels.astype(jnp.uint32) ^ salt[0]
     x = (x ^ (x >> 16)) * jnp.uint32(0x85EBCA6B)
     x = (x ^ (x >> 13)) * jnp.uint32(0xC2B2AE35)
-    x = x ^ (x >> 16) ^ salt[1].astype(jnp.uint32)
+    x = x ^ (x >> 16) ^ salt[1]
     x = (x ^ (x >> 16)) * jnp.uint32(0x7FEB352D)
     x = (x ^ (x >> 15)) * jnp.uint32(0x846CA68B)
     x = x ^ (x >> 16)
@@ -558,7 +451,7 @@ def fk_bond_activation(spins, coup_fwd, geom, temp, key, *, factor=2.0,
 
     ``factor`` is the exponent multiplier: 2 for FK, 4 for the Joerg move's
     pair bonds (overlap.rs:424-436).  ``u`` injects the per-bond uniforms
-    (bitwise kernel-vs-reference tests); default draws them from ``key``.
+    (bitwise tests against a reference); default draws them from ``key``.
     Returns ``bool [n_spins, n_neighbors]``.
     """
     s = spins.astype(jnp.float32)
@@ -582,21 +475,14 @@ class GraphObservation(NamedTuple):
     large_components: jax.Array  # int32 scalar
 
 
-def graph_observation(active_fwd, counts, labels, geom, with_winding,
-                      winding_pre=None):
+def graph_observation(active_fwd, counts, labels, geom, with_winding):
     """Graph observables for one bond graph (clusters/utils.rs:334-368).
 
     ``with_winding`` must be a static bool (canonical 2D lattices only).
-    ``winding_pre``: precomputed ``(wx, wy)`` flags — the engine batches
-    winding over all graphs at once (the Pallas kernel
-    :func:`peapods_tpu.ops.pallas_cc_batch.winding_batch`, or one vmapped
-    :func:`winding_flags` pass) instead of settling per graph here.
     """
     n_spins = counts.shape[0]
     threshold = jnp.int32(-(-n_spins * 5 // 100))  # ceil(0.05 * n)
-    if winding_pre is not None:
-        wx, wy = winding_pre
-    elif with_winding:
+    if with_winding:
         wx, wy = winding_flags(active_fwd, labels, geom)
     else:
         wx, wy = _NO_WINDING
@@ -612,7 +498,7 @@ def graph_observation(active_fwd, counts, labels, geom, with_winding,
 def winding_flags(active_fwd, labels, geom):
     """Detect components wrapping the torus along each of the two axes.
 
-    TPU-native replacement of the reference's displacement-tracking union-find
+    Data-parallel replacement of the reference's displacement-tracking union-find
     (``WindingUf``, clusters/utils.rs:371-455).  We BFS-settle an *unwrapped*
     displacement potential ``d[i]`` from each component's root (its min-label
     site) along active bonds; a component winds along axis ``a`` iff some
@@ -656,8 +542,8 @@ def winding_flags(active_fwd, labels, geom):
         # 16 settle rounds per convergence check: the `.all()` scalar
         # reduction forces a pipeline sync, and the BFS depth is the
         # component's CHEMICAL diameter (~L^1.13 at 2D T_c — hundreds of
-        # rounds at 256^2), so per-round checks dominated full observe
-        # mode (14.9 ms/sweep measured round 5).  Rounds past the settle
+        # rounds at 256^2), so per-round checks would dominate full
+        # observe mode.  Rounds past the settle
         # point are no-ops (every `ok` requires ~settled), so the final
         # (settled, disp) is bitwise the per-round-check fixed point.
         for _ in range(16):

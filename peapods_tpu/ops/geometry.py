@@ -1,12 +1,12 @@
-"""Roll-based neighbor access: the TPU-native lattice addressing scheme.
+"""Roll-based neighbor access: the device-side lattice addressing scheme.
 
 The reference addresses neighbors through precomputed flat index tables
-(``geometry/lattice.rs:63-108``) because its site loops are sequential.  On
-TPU, a random-access gather of ``n_systems * n_spins * n_neighbors`` elements
-per sweep would be the bottleneck — but on a periodic Bravais lattice the
-neighbor map in direction ``d`` is a *circular shift* by the offset vector,
-so every neighbor "gather" lowers to ``jnp.roll`` (slice + concatenate), which
-XLA fuses into the surrounding elementwise work at full VPU throughput.
+(``geometry/lattice.rs:63-108``) because its site loops are sequential.  On a
+device, a random-access gather of ``n_systems * n_spins * n_neighbors``
+elements per sweep would move an index table as large as the spins — but on a
+periodic Bravais lattice the neighbor map in direction ``d`` is a *circular
+shift* by the offset vector, so every neighbor "gather" lowers to ``jnp.roll``
+(slice + concatenate), which XLA fuses into the surrounding elementwise work.
 
 ``GridOps`` carries the static lattice shape and offsets and converts between
 the flat site axis used by the engine state and the N-D grid used for shifts.

@@ -1,6 +1,6 @@
 """Periodic Bravais lattice with precomputed neighbor tables and site coloring.
 
-TPU-native counterpart of the reference lattice geometry
+Counterpart of the reference lattice geometry
 (``/root/reference/spin-sim/src/geometry/lattice.rs:9-109`` and
 ``geometry/offsets.rs:4-20``).  The reference precomputes flat forward/backward
 neighbor index tables used by sequential site loops; here the same tables are

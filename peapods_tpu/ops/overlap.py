@@ -1,6 +1,6 @@
 """Replica-overlap cluster moves: Houdayer(N), Joerg, CMR.
 
-TPU-native counterpart of ``/root/reference/spin-sim/src/clusters/overlap.rs``.
+Data-parallel counterpart of the reference's ``spin-sim/src/clusters/overlap.rs``.
 The reference fans (temperature x replica-group) tasks out over rayon threads;
 here every task is one element of a vmapped batch: replicas at each
 temperature are shuffled on-device, grouped, their spin configurations
@@ -87,8 +87,7 @@ class OverlapMoveOut(NamedTuple):
 
 def _stats(active, labels, geom, with_winding, with_stats):
     """(counts, csd, obs) for the stats graph — or Nones when the caller
-    collects nothing (cluster statistics are scatter-heavy on TPU and the
-    move itself only needs labels; XLA does not reliably dead-code them
+    collects nothing (cluster statistics are scatter-heavy and the move itself only needs labels; XLA does not reliably dead-code them
     through the engine's lax.cond event gating)."""
     if not with_stats:
         return None, None, None

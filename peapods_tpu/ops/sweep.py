@@ -1,6 +1,6 @@
 """Single-spin-flip sweeps as vectorized multicolor (checkerboard) updates.
 
-TPU-native counterpart of the reference's sequential site sweeps
+Data-parallel counterpart of the reference's sequential site sweeps
 (``/root/reference/spin-sim/src/mcmc/sweep.rs:34-284``).  The acceptance rule
 is identical — flip site ``i`` iff ``-s_i * h_i >= threshold(T, u)`` with
 
@@ -94,7 +94,8 @@ def mc_sweep(
         key: per-(realization, sweep) PRNG key.
         gibbs: Gibbs threshold instead of Metropolis.
         uniforms: optional ``[n_colors, n_systems, n_spins]`` acceptance
-            uniforms, used by the Pallas-vs-jnp equivalence tests.
+            uniforms, used by the tests against the numpy reference sweep
+            (``tests/reference_np.py``).
 
     Returns:
         Updated ``int8 [n_systems, n_spins]`` spins.

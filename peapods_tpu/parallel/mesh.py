@@ -1,6 +1,6 @@
 """Device-mesh sharding of the simulation state.
 
-TPU-native replacement for the reference's process/thread parallelism
+Device-mesh replacement for the reference's process/thread parallelism
 (SURVEY.md section 2.4): disorder realizations — rayon's ``par_iter_mut`` fan
 -out in the reference (simulation/mod.rs:887-903) — become a sharded leading
 batch axis of every state array, partitioned across chips with
@@ -9,7 +9,8 @@ measurements, so the fused sweep loop runs with **zero** cross-chip
 communication; XLA inserts collectives only for host-bound reductions at
 chunk boundaries.  A second optional mesh axis shards the systems
 (replicas x temperatures) batch; the small cross-system gathers of the
-overlap moves and parallel tempering ride ICI via XLA-inserted collectives.
+overlap moves and parallel tempering ride XLA-inserted collectives over the
+device interconnect.
 """
 
 from __future__ import annotations
@@ -113,19 +114,4 @@ def shard_runtime(rt, mesh):
         rt.color_masks, NamedSharding(mesh, P(None, space))
     )
     rt.temps = jax.device_put(rt.temps, rspec)
-    if rt.jgrids is not None:
-        # halo-kernel grids are full-lattice ([d, 4, H, W] for 2D,
-        # [d, 6, L0, kp*block] for 3D) -> shard the row/plane axis with the
-        # spins; kernel grids otherwise ride the disorder axis
-        halo = (
-            getattr(rt, "halo2d", False)
-            or getattr(rt, "halo2d_k", 0)
-            or getattr(rt, "halo3d", 0)
-        )
-        spec = (
-            P(dis, None, space, None)
-            if (space is not None and halo)
-            else P(dis)
-        )
-        rt.jgrids = jax.device_put(rt.jgrids, NamedSharding(mesh, spec))
     return rt

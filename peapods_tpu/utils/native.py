@@ -1,13 +1,16 @@
 """ctypes bindings for the native host helpers (``native/lattice_native.cc``).
 
-Loads ``libpeapods_native.so`` when present (``make -C native``); every entry
-point has a pure-python fallback so the package works without the build step.
+The library is built from source at first use (``make -C native``, into a
+process-private file that is renamed into place, so concurrent first users
+never load a half-written library).  Every entry point has a pure-python
+fallback, so the package works where no C++ compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +18,26 @@ import numpy as np
 __all__ = ["available", "build_neighbor_tables", "greedy_color", "union_find_labels"]
 
 _LIB = None
+_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+_LIB_NAME = "libpeapods_native.so"
+
+
+def _build():
+    """Compile the library into ``native/`` (atomic rename); True on success."""
+    src = _NATIVE_DIR / "lattice_native.cc"
+    if not src.exists():
+        return False
+    tmp = f".{_LIB_NAME}.{os.getpid()}"
+    try:
+        subprocess.run(
+            ["make", "-s", "-C", str(_NATIVE_DIR), f"TARGET={tmp}"],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(_NATIVE_DIR / tmp, _NATIVE_DIR / _LIB_NAME)
+    except (OSError, subprocess.SubprocessError):
+        (_NATIVE_DIR / tmp).unlink(missing_ok=True)
+        return False
+    return True
 
 
 def _load():
@@ -24,42 +47,39 @@ def _load():
     if os.environ.get("PEAPODS_NO_NATIVE") == "1":
         _LIB = False
         return _LIB
-    candidates = [
-        Path(__file__).resolve().parents[2] / "native" / "libpeapods_native.so",
-        Path(__file__).resolve().parent / "libpeapods_native.so",
+    path = _NATIVE_DIR / _LIB_NAME
+    if not path.exists() and not _build():
+        _LIB = False
+        return _LIB
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError:
+        _LIB = False
+        return _LIB
+    lib.build_neighbor_tables.argtypes = [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
     ]
-    for path in candidates:
-        if path.exists():
-            try:
-                lib = ctypes.CDLL(str(path))
-                lib.build_neighbor_tables.argtypes = [
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_int64),
-                    ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_int32),
-                    ctypes.POINTER(ctypes.c_int32),
-                ]
-                lib.greedy_color.restype = ctypes.c_int32
-                lib.greedy_color.argtypes = [
-                    ctypes.POINTER(ctypes.c_int32),
-                    ctypes.POINTER(ctypes.c_int32),
-                    ctypes.c_int64,
-                    ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_int32),
-                ]
-                lib.union_find_labels.argtypes = [
-                    ctypes.POINTER(ctypes.c_uint8),
-                    ctypes.POINTER(ctypes.c_int32),
-                    ctypes.c_int64,
-                    ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_int32),
-                ]
-                _LIB = lib
-                return _LIB
-            except OSError:
-                continue
-    _LIB = False
+    lib.greedy_color.restype = ctypes.c_int32
+    lib.greedy_color.argtypes = [
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.union_find_labels.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    _LIB = lib
     return _LIB
 
 

@@ -1,6 +1,6 @@
 """Profiling hooks: named scopes for the loop phases + a trace context.
 
-TPU counterpart of the reference's ``profile`` cargo feature
+Device counterpart of the reference's ``profile`` cargo feature
 (``spin-sim/Cargo.toml:12-13`` + ``inline(never)`` attributes on hot
 kernels): phases are annotated with ``jax.named_scope`` so device traces
 show clean per-phase frames, and :func:`trace` wraps ``jax.profiler`` for

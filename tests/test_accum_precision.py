@@ -1,6 +1,6 @@
 """Long-run precision of the f32 conditional-sum accumulators.
 
-VERDICT item: ql_at_q / ql2_at_q / top4_frac used to accumulate as raw f32
+Regression: ql_at_q / ql2_at_q / top4_frac used to accumulate as raw f32
 scatter-adds across an entire sample(); at reference budgets (tens of
 thousands of recorded sweeps into hot bins) per-bin sums lose precision.
 The engine now folds per-chunk f32 sums into Kahan-compensated totals at

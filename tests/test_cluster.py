@@ -191,57 +191,8 @@ def test_connected_components_banded_matches_unsharded():
             )
 
 
-def test_connected_components_banded_pallas_matches_unsharded():
-    """The Pallas band-local body (ops/pallas_cc_band.py: band + halo rows
-    as one packed tile, halo rows participating in the in-kernel fixed
-    point) converges to the same unique global labeling, bitwise, on every
-    geometry — including hl=1 bands where every row is a seam row, and with
-    the log-doubling inner body."""
-    import jax
-    import pytest
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    from jax.sharding import PartitionSpec as P
-
-    from peapods_tpu.ops import pallas_cc_band as pcb
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    rng = np.random.default_rng(5)
-    cases = [
-        ([16, 16], None, 2, 0),
-        ([16, 16], None, 2, 1),  # log-doubling inner body
-        ([8, 8], [[1, 0], [0, 1], [1, -1]], 2, 0),
-        ([8, 8, 8], None, 2, 0),
-        ([8, 8, 8], [[1, 1, 0], [1, 0, 1], [0, 1, 1],
-                     [1, -1, 0], [1, 0, -1], [0, 1, -1]], 2, 0),
-        ([8, 8, 8], [[1, 1, 1], [1, 1, -1], [1, -1, 1], [1, -1, -1]], 8, 0),
-    ]
-    for shape, offsets, ns, log_cc in cases:
-        lat = Lattice(shape, offsets)
-        geom = GridOps.from_lattice(lat)
-        assert pcb.band_supports_pallas(geom)
-        mesh = make_mesh(ns, ("space",))
-        call = jax.shard_map(
-            lambda a: cl.connected_components_banded(
-                a, geom, axis="space", pallas=True, interpret=True,
-                log_cc=log_cc,
-            ),
-            mesh=mesh, in_specs=P(None, "space", None),
-            out_specs=P(None, "space"), check_vma=False,
-        )
-        active = jnp.asarray(
-            rng.random((2, lat.n_spins, lat.n_neighbors)) < 0.5
-        )
-        ref = jax.vmap(lambda a: cl.connected_components(a, geom))(active)
-        np.testing.assert_array_equal(
-            np.asarray(call(active)), np.asarray(ref),
-            err_msg=f"shape={shape} off={offsets} ns={ns} log={log_cc}",
-        )
-
-
 def test_hist_matmul_matches_scatter_edges():
-    """The MXU histogram equals the scatter-add form on edge shapes: bin
+    """The one-hot matmul histogram equals the scatter-add form on edge shapes: bin
     counts not a lane multiple (n=64, n=100), values hitting the last bin
     (counts == n), empty input weights, and the all-one-component case."""
     import jax.numpy as jnp

@@ -160,9 +160,9 @@ def _enumerate_offsets(shape, offsets):
 def test_diagonal_geometry_exact(geometry, kw):
     """2x2x4 BCC / FCC ferromagnet vs full enumeration — pins the diagonal
     offset geometry semantics (neighbor tables, wrap double-bonds) that the
-    Binder crossings only test statistically.  The BCC/FCC Pallas kernels
-    are bitwise the jnp path under shared uniforms
-    (tests/test_pallas_sweep_diag.py), so this oracle covers them too."""
+    Binder crossings only test statistically.  The sweep's flip rule on
+    these geometries is pinned against the numpy reference under shared
+    uniforms in tests/test_reference_np.py."""
     E, M, n = _enumerate_lattice((2, 2, 4), geometry)
     T = 4.0 if geometry == "bcc" else 5.0
     e_ex, m2_ex = exact_em(E, M, T, n=n)
@@ -181,9 +181,9 @@ def test_diagonal_geometry_exact(geometry, kw):
 def test_custom_offsets_exact(kw):
     """2x8 next-nearest-neighbor square ferromagnet vs full enumeration —
     pins custom-offset neighbor semantics (incl. the extent-2 wrap double
-    bonds of the diagonal directions), the ground the generic-offset
-    kernel family stands on (its flips are bitwise this jnp path under
-    shared uniforms, tests/test_pallas_sweep_gen.py)."""
+    bonds of the diagonal directions); the flip rule on custom offset
+    tables is pinned against the numpy reference in
+    tests/test_reference_np.py."""
     offs = [[1, 0], [0, 1], [1, 1], [1, -1]]
     E, M, n = _enumerate_offsets((2, 8), offs)
     T = 5.0

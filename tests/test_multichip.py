@@ -45,53 +45,6 @@ def test_sharded_matches_unsharded_trajectory():
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_pallas_kernels_survive_mesh_via_shard_map(monkeypatch):
-    """Multi-device meshes must keep the Pallas fast path (shard_map wrap)
-    and produce trajectories bitwise identical to the unsharded kernel."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")  # force pallas on CPU
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    rng = np.random.default_rng(2)
-    coup = (2 * rng.integers(0, 2, size=(8, 32, 32, 2)) - 1).astype(np.float32)
-    temps = np.array([1.0, 2.0], np.float32)
-
-    sharded = IsingSimulation([32, 32], coup, temps, 2, None, 3,
-                              mesh=make_mesh(8))
-    assert sharded.rt.pack_k == 4  # lane-packed kernel stays on under mesh
-    r_sh = sharded.sample(4, "metropolis", pt_interval=2, warmup_ratio=0)
-    plain = IsingSimulation([32, 32], coup, temps, 2, None, 3, mesh=None)
-    assert plain.rt.pack_k == 4
-    r_pl = plain.sample(4, "metropolis", pt_interval=2, warmup_ratio=0)
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["mags2"], r_pl["mags2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_direct_pallas_kernel_under_mesh(monkeypatch):
-    """Wide lattices (direct + fused kernel) under a mesh, vs unsharded."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    coup = np.ones((4, 8, 128, 2), np.float32)
-    temps = np.array([2.2, 2.4], np.float32)
-    sharded = IsingSimulation([8, 128], coup, temps, 1, None, 5,
-                              mesh=make_mesh(4))
-    assert sharded.rt.use_pallas
-    r_sh = sharded.sample(3, "metropolis", warmup_ratio=0)
-    plain = IsingSimulation([8, 128], coup, temps, 1, None, 5, mesh=None)
-    r_pl = plain.sample(3, "metropolis", warmup_ratio=0)
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["energies"], r_pl["energies"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_non_divisible_disorder_padded_onto_mesh():
     """n_disorder=9 on 8 devices: auto padding must keep results identical
     to an unsharded run (padded realizations are dropped at aggregation)."""
@@ -143,7 +96,6 @@ def test_spatial_decomposition_matches_unsharded():
 
     mesh = make_mesh(4, ("space",))
     spatial = IsingSimulation([16, 16], coup, temps, 1, None, 11, mesh=mesh)
-    assert not spatial.rt.use_pallas and spatial.rt.pack_k == 0
     r_sp = spatial.sample(6, "metropolis", **kwargs)
     plain = IsingSimulation([16, 16], coup, temps, 1, None, 11, mesh=None)
     r_pl = plain.sample(6, "metropolis", **kwargs)
@@ -154,43 +106,6 @@ def test_spatial_decomposition_matches_unsharded():
     np.testing.assert_array_equal(r_sp["mags2"], r_pl["mags2"])
     np.testing.assert_array_equal(
         np.asarray(r_sp["fk_csd"]), np.asarray(r_pl["fk_csd"])
-    )
-
-
-def test_space_mesh_pallas_banded_cc(monkeypatch):
-    """The Pallas band-local CC body under the space mesh: the plan says
-    cc=pallas-banded, and the trajectory + collected CSD are bitwise the
-    jnp-banded run's (the converged labels are the same unique fixed
-    point)."""
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    temps = np.array([2.269185], dtype=np.float32)
-    coup = np.ones((16, 16, 2), np.float32)
-    kwargs = dict(cluster_update_interval=1, cluster_mode="sw",
-                  collect_cluster_stats=True, warmup_ratio=0)
-
-    mesh = make_mesh(4, ("space",))
-    a = IsingSimulation([16, 16], coup, temps, 1, None, 11, mesh=mesh)
-    r_a = a.sample(4, "metropolis", **kwargs)
-    prog = next(iter(a._programs.values()))
-    assert prog.cc_band_pallas
-    assert "cc=pallas-banded" in prog.describe_plan()
-
-    monkeypatch.setenv("PEAPODS_CC_BAND_PALLAS", "0")
-    b = IsingSimulation([16, 16], coup, temps, 1, None, 11, mesh=mesh)
-    r_b = b.sample(4, "metropolis", **kwargs)
-    prog_b = next(iter(b._programs.values()))
-    assert not prog_b.cc_band_pallas
-    assert "cc=jnp-banded" in prog_b.describe_plan()
-    monkeypatch.delenv("PEAPODS_CC_BAND_PALLAS")
-
-    np.testing.assert_array_equal(
-        np.asarray(a.state["spins"]), np.asarray(b.state["spins"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(r_a["fk_csd"]), np.asarray(r_b["fk_csd"])
     )
 
 
@@ -244,315 +159,3 @@ def test_multidevice_binder_physics_oracle():
     binder = float(model.binder_cumulant[0])
     assert abs(binder - 0.6107) < 0.06, binder
 
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_cc_batch_kernel_under_disorder_mesh(monkeypatch):
-    """The batched CC kernel shard_maps over a disorder-only mesh (each
-    device labels its own shard's FK graphs); trajectory and cluster-size
-    statistics must stay bitwise identical to the unsharded kernel run."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([2.0, 2.6], dtype=np.float32)
-    rng = np.random.default_rng(9)
-    coup = (2 * rng.integers(0, 2, size=(8, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(cluster_update_interval=2, cluster_mode="sw",
-                  collect_cluster_stats=True, warmup_ratio=0)
-
-    sharded = IsingSimulation([8, 8], coup, temps, 1, None, 13,
-                              mesh=make_mesh(8))
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert prog.cc_batch, prog.describe_plan()
-    plain = IsingSimulation([8, 8], coup, temps, 1, None, 13, mesh=None)
-    r_pl = plain.sample(6, "metropolis", **kwargs)
-    assert next(iter(plain._programs.values())).cc_batch
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(r_sh["fk_csd"]), np.asarray(r_pl["fk_csd"])
-    )
-    np.testing.assert_array_equal(r_sh["mags2"], r_pl["mags2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-@pytest.mark.parametrize("build_mode", ["houdayer", "jorg", "houd4"])
-def test_event_kernel_under_disorder_mesh(monkeypatch, build_mode):
-    """The fused overlap-event kernel shard_maps over a disorder-only mesh
-    (per-shard tile packing, incl. the packed J/T grids); houdayer draws are
-    threefry (bitwise on any backend) and the interpreter's per-bond
-    uniforms are zeros in both arms, so sharded == unsharded bitwise."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([1.0, 1.8], dtype=np.float32)
-    rng = np.random.default_rng(11)
-    coup = (2 * rng.integers(0, 2, size=(8, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(
-        pt_interval=2,
-        overlap_cluster_update_interval=2,
-        overlap_cluster_build_mode=build_mode,
-        overlap_cluster_mode="sw",
-        warmup_ratio=0,
-    )
-
-    n_rep = 4 if build_mode == "houd4" else 2
-    sharded = IsingSimulation([8, 8], coup, temps, n_rep, None, 17,
-                              mesh=make_mesh(8))
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert prog.event_kernel, prog.describe_plan()
-    plain = IsingSimulation([8, 8], coup, temps, n_rep, None, 17, mesh=None)
-    r_pl = plain.sample(6, "metropolis", **kwargs)
-    assert next(iter(plain._programs.values())).event_kernel
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["overlap2"], r_pl["overlap2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_fk_kernel_under_disorder_mesh(monkeypatch):
-    """The fused FK kernel shard_maps over a disorder-only mesh (per-shard
-    packing incl. the packed coupling grids); the interpreter's per-bond
-    uniforms are zeros in both arms, so sharded == unsharded bitwise."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([2.2, 2.8], dtype=np.float32)
-    rng = np.random.default_rng(23)
-    coup = (2 * rng.integers(0, 2, size=(8, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(cluster_update_interval=2, cluster_mode="wolff",
-                  pt_interval=2, warmup_ratio=0)
-
-    sharded = IsingSimulation([8, 8], coup, temps, 1, None, 29,
-                              mesh=make_mesh(8))
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert prog.fk_kernel, prog.describe_plan()
-    plain = IsingSimulation([8, 8], coup, temps, 1, None, 29, mesh=None)
-    r_pl = plain.sample(6, "metropolis", **kwargs)
-    assert next(iter(plain._programs.values())).fk_kernel
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["mags2"], r_pl["mags2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_cc_batch_kernel_under_disorder_systems_mesh(monkeypatch):
-    """The batched CC kernel also serves disorder x systems meshes (the
-    flat graph batch splits evenly over the combined axes; labels are
-    graph-local), bitwise vs the unsharded run."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([2.0, 2.6], dtype=np.float32)
-    rng = np.random.default_rng(33)
-    coup = (2 * rng.integers(0, 2, size=(2, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(cluster_update_interval=2, cluster_mode="sw",
-                  collect_cluster_stats=True, warmup_ratio=0)
-    mesh = make_mesh(8, ("disorder", "systems"))
-    assert dict(mesh.shape) == {"disorder": 2, "systems": 4}
-
-    sharded = IsingSimulation([8, 8], coup, temps, 2, None, 37, mesh=mesh)
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert prog.cc_batch, prog.describe_plan()
-    plain = IsingSimulation([8, 8], coup, temps, 2, None, 37, mesh=None)
-    r_pl = plain.sample(6, "metropolis", **kwargs)
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(
-        np.asarray(r_sh["fk_csd"]), np.asarray(r_pl["fk_csd"])
-    )
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_fk_kernel_under_disorder_systems_mesh(monkeypatch):
-    """The fused FK kernel also serves disorder x systems meshes: the flat
-    (disorder-major, system) graph batch splits evenly over the combined
-    axes and each shard pad/packs its own chunk (incl. the chunked packed
-    coupling grids, which may split one disorder's systems across shards).
-    Bitwise vs unsharded (zero per-bond uniforms on the interpreter)."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([2.0, 2.6], dtype=np.float32)
-    rng = np.random.default_rng(41)
-    coup = (2 * rng.integers(0, 2, size=(2, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(cluster_update_interval=2, cluster_mode="sw",
-                  pt_interval=2, warmup_ratio=0)
-    mesh = make_mesh(8, ("disorder", "systems"))
-
-    sharded = IsingSimulation([8, 8], coup, temps, 2, None, 43, mesh=mesh)
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert prog.fk_kernel, prog.describe_plan()
-    plain = IsingSimulation([8, 8], coup, temps, 2, None, 43, mesh=None)
-    r_pl = plain.sample(6, "metropolis", **kwargs)
-    assert next(iter(plain._programs.values())).fk_kernel
-
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["mags2"], r_pl["mags2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-@pytest.mark.parametrize("build_mode", ["houdayer", "houd4"])
-def test_event_kernel_under_disorder_systems_mesh(monkeypatch, build_mode):
-    """The fused overlap-event kernel also serves disorder x systems meshes:
-    the flat (disorder-major, temperature-major) task batch splits evenly
-    over the combined axes — tasks are whole rows (both partners live in the
-    same task row), so an even contiguous split keeps every task on one
-    device.  Oracle: the staged (bonds -> batched CC -> finish) path on the
-    SAME mesh — deterministic-bond modes are bitwise-identical fused vs
-    staged, and sharing the mesh keeps every other phase's kernel choice
-    (and hence PRNG stream) equal between arms.  A plain-arm comparison
-    would differ for an unrelated reason: the per-shard systems count
-    changes the sweep-kernel choice.  Jorg's mesh routing (per-bond
-    uniforms) is pinned by the kernel-level sharded injected-uniform test
-    (tests/test_pallas_event.py)."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.geomspace(1.0, 1.8, 4).astype(np.float32)
-    rng = np.random.default_rng(47)
-    coup = (2 * rng.integers(0, 2, size=(2, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(
-        pt_interval=2,
-        overlap_cluster_update_interval=2,
-        overlap_cluster_build_mode=build_mode,
-        overlap_cluster_mode="sw",
-        warmup_ratio=0,
-    )
-    mesh = make_mesh(8, ("disorder", "systems"))
-    assert dict(mesh.shape) == {"disorder": 2, "systems": 4}
-
-    n_rep = 4  # houdayer pairs: 2*4*2=16 tasks; houd4: 8 — both split by 8
-    fused = IsingSimulation([8, 8], coup, temps, n_rep, None, 53, mesh=mesh)
-    r_f = fused.sample(6, "metropolis", **kwargs)
-    prog = next(iter(fused._programs.values()))
-    assert prog.event_kernel, prog.describe_plan()
-    monkeypatch.setenv("PEAPODS_DISABLE_EVENTKERNEL", "1")
-    staged = IsingSimulation([8, 8], coup, temps, n_rep, None, 53, mesh=mesh)
-    r_s = staged.sample(6, "metropolis", **kwargs)
-    assert not next(iter(staged._programs.values())).event_kernel
-
-    np.testing.assert_array_equal(
-        np.asarray(fused.state["spins"]), np.asarray(staged.state["spins"])
-    )
-    np.testing.assert_array_equal(r_f["overlap2"], r_s["overlap2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_event_kernel_indivisible_task_batch_falls_back(monkeypatch):
-    """A mesh that cannot split the flat task batch evenly must keep the
-    staged (bonds -> batched CC -> finish) path — and still run correctly
-    (bitwise vs unsharded through the staged kernels)."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([1.0, 1.8], dtype=np.float32)
-    rng = np.random.default_rng(59)
-    coup = (2 * rng.integers(0, 2, size=(2, 8, 8, 2)) - 1).astype(np.float32)
-    kwargs = dict(
-        pt_interval=2,
-        overlap_cluster_update_interval=2,
-        overlap_cluster_build_mode="houdayer",
-        overlap_cluster_mode="sw",
-        warmup_ratio=0,
-    )
-    # flat pair-task batch = 2 disorder * 2 temps * 1 group = 4, not
-    # divisible by 8 devices -> event kernel must gate off
-    mesh = make_mesh(8, ("disorder", "systems"))
-    sharded = IsingSimulation([8, 8], coup, temps, 2, None, 61, mesh=mesh)
-    r_sh = sharded.sample(6, "metropolis", **kwargs)
-    prog = next(iter(sharded._programs.values()))
-    assert not prog.event_kernel, prog.describe_plan()
-    monkeypatch.setenv("PEAPODS_DISABLE_EVENTKERNEL", "1")
-    plain2 = IsingSimulation([8, 8], coup, temps, 2, None, 61, mesh=None)
-    r_pl = plain2.sample(6, "metropolis", **kwargs)
-    np.testing.assert_array_equal(
-        np.asarray(sharded.state["spins"]), np.asarray(plain2.state["spins"])
-    )
-    np.testing.assert_array_equal(r_sh["overlap2"], r_pl["overlap2"])
-
-
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-def test_disorder_by_space_mesh_halo3d(monkeypatch):
-    """3D disorder x space mesh routes through the halo3d kernel with the
-    disorder batch ALSO partitioned: path activation, finite stats, and
-    determinism across chunkings (a bitwise plain-path comparison is not
-    meaningful here — the halo kernel draws its own per-(shard, color)
-    PRNG streams)."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-
-    temps = np.array([1.4, 2.2], dtype=np.float32)
-    rng = np.random.default_rng(9)
-    coup = (
-        2 * rng.integers(0, 2, size=(2, 16, 8, 16, 3)) - 1
-    ).astype(np.float32)
-    mesh = make_mesh(4, ("disorder", "space"))
-    assert dict(mesh.shape) == {"disorder": 2, "space": 2}
-
-    def sim(seed):
-        return IsingSimulation([16, 8, 16], coup, temps, 1, None, seed,
-                               default_chunk=4, mesh=mesh)
-
-    a = sim(3)
-    ra = a.sample(4, "metropolis", pt_interval=1, warmup_ratio=0)
-    prog = next(iter(a._programs.values()))
-    assert a.rt.halo3d == 1 and "pallas-3d-halo" in prog.describe_plan()
-    assert prog.fuse_measure
-    assert np.isfinite(ra["mags2"]).all()
-
-    b = sim(3)
-    b.sample(2, "metropolis", pt_interval=1, warmup_ratio=0)
-    b.sample(2, "metropolis", pt_interval=1, warmup_ratio=0)
-    np.testing.assert_array_equal(
-        np.asarray(a.state["spins"]), np.asarray(b.state["spins"])
-    )
-
-
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-@pytest.mark.parametrize("kind", ["bcc", "fcc"])
-def test_diag_kernel_under_disorder_mesh(monkeypatch, kind):
-    """BCC/FCC sweep kernels under a disorder mesh: sharded == unsharded
-    bitwise (the kernel rides the generic shard_map wrap like the other
-    packed sweep kernels)."""
-    monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
-    from peapods_tpu.engine.simulation import IsingSimulation
-    from peapods_tpu.parallel.mesh import make_mesh
-    from peapods_tpu.ops.lattice import GEOMETRY_OFFSETS
-
-    offs = GEOMETRY_OFFSETS[kind]
-    rng = np.random.default_rng(13)
-    coup = rng.choice(np.float32([-1, 1]), size=(4, 8, 8, 8, len(offs)))
-    temps = np.geomspace(2.0, 8.0, 2).astype(np.float32)
-
-    runs = []
-    for mesh in (make_mesh(4), None):
-        sim = IsingSimulation([8, 8, 8], coup, temps, 1, offs, 7,
-                              default_chunk=4, mesh=mesh)
-        r = sim.sample(4, "metropolis", pt_interval=2, warmup_ratio=0)
-        assert sim.rt.diag == 2 and sim.rt.diag_kind == kind
-        runs.append((np.asarray(sim.state["spins"]), np.asarray(r["mags2"])))
-    np.testing.assert_array_equal(runs[0][0], runs[1][0])
-    np.testing.assert_array_equal(runs[0][1], runs[1][1])

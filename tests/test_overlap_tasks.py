@@ -91,7 +91,6 @@ def test_cluster_coin_is_constant_per_cluster():
     rng = np.random.default_rng(5)
     active = jnp.asarray(rng.random((36, 2)) < 0.5)
     labels = cl.connected_components(active, geom)
-    counts = cl.component_counts(labels)
     flip = np.asarray(
         cl.cluster_coin_flip_mask(jax.random.PRNGKey(2), labels)
     )

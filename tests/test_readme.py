@@ -13,7 +13,6 @@ structural check (blocks parse / flags exist) always runs.
 import os
 import re
 import shlex
-import sys
 from pathlib import Path
 
 import pytest

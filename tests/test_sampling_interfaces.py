@@ -119,12 +119,11 @@ class TestObserveMode:
         )
         np.testing.assert_array_equal(ov_obs._sim.get_spins(), expected)
 
-    def test_observe_mutates_nothing_fused_path(self, monkeypatch):
-        """Observer invariance through the fused 3D measurement kernel + PT:
-        PT must reuse the kernel-measured energies on observe-mode overlap
-        sweeps (regression: recomputing them in jnp used a different f32
-        sum order and could flip a threshold-marginal swap)."""
-        monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
+    def test_observe_mutates_nothing_fused_path(self):
+        """Observer invariance through the 3D measurement + PT path: PT must
+        reuse the measured energies on observe-mode overlap sweeps
+        (regression: recomputing them used a different f32 sum order and
+        could flip a threshold-marginal swap)."""
 
         def glass(seed):
             return Ising(
@@ -155,13 +154,11 @@ class TestObserveMode:
             np.asarray(obs._sim.state["system_ids"]), sid_expected
         )
 
-    def test_fk_observe_mutates_nothing_fused_path(self, monkeypatch):
+    def test_fk_observe_mutates_nothing_fused_path(self):
         """FK-observe counterpart: an observe-only FK phase leaves spins
-        untouched between sweep and measurement, so the engine keeps the
-        fused sweep+measure kernel — and PT must still see the fused-kernel
-        energies, keeping the FK-observer run bitwise identical to an
+        untouched between sweep and measurement, so PT sees the measured
+        energies and the FK-observer run stays bitwise identical to an
         observer-free run (same mechanism as the overlap-observer case)."""
-        monkeypatch.setenv("PEAPODS_PALLAS_INTERPRET", "1")
 
         def glass(seed):
             return Ising(
@@ -188,7 +185,7 @@ class TestObserveMode:
         )
         prog = [p for p in obs._sim._programs.values()
                 if p.cfg.cluster_update is not None][0]
-        assert prog.fuse_measure, "observe-only FK must keep the fused kernel"
+        assert prog.observe_fk and prog.describe_plan() == "sweep=jnp, cc=jnp"
         np.testing.assert_array_equal(obs._sim.get_spins(), expected)
         np.testing.assert_array_equal(
             np.asarray(obs._sim.state["system_ids"]), sid_expected

@@ -63,7 +63,6 @@ def test_round_trip_state_machine():
     np.testing.assert_array_equal(np.asarray(ts), [0, 1])  # system 1 starts hot
 
     rt = jnp.zeros(2, jnp.int32)
-    args = dict(n_spins=4, hot_slot=1, cold_slot=0)
     # forced swap: energy gap favorable
     e = jnp.asarray([0.0, 100.0], jnp.float32)
     sid, att, acc, rt, ts = pt.pt_full_ladder(
